@@ -14,9 +14,14 @@ call — on the kernel backend, one kernel launch — per bucket.
 ``BatchResult`` keeps the per-seed samples bitwise-identical to individual
 ``simulate()`` calls and derives mean/ci95/p50/p99 aggregates from them.
 
+Open-loop workloads (``Workload.arrivals``, ``R > 0`` request slots, part
+of the shape key) carry the per-request arrays ``arr_ns / wait_ns /
+sojourn_ns / rstat`` and the serving aggregates ``serving(i)`` /
+``serving_mean()``.
+
 ``exec_stats()`` counts engine dispatches and kernel launches. Sharded
-dispatch (``devices=`` / ``chunk=``) and open-loop workloads are not
-ported yet and raise ``NotImplementedError``.
+dispatch (``devices=`` / ``chunk=``) is not ported yet and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,8 +36,9 @@ from repro_torch.core.sim import (LAT_SAMPLES, SimConfig, SimResult,
                                   topology)
 from repro_torch.device import resolve_backend, resolve_device
 from repro_torch.kernels.event_loop import kernel as _kernel
-from repro_torch.kernels.event_loop.ops import (OPEN_LOOP_MSG,
-                                                precompute_draws, run_events)
+from repro_torch.kernels.event_loop.ops import (precompute_draws,
+                                                precompute_plan, run_events)
+from repro_torch.traffic.metrics import serving_summary
 from repro_torch.workloads import (Workload, WorkloadOperands, as_workload,
                                    lower, pad_phases, to_device)
 
@@ -44,8 +50,10 @@ SHARDED_MSG = (
 # A "dispatch" is one engine call covering a whole bucket; "launches" is the
 # event-loop kernel's own launch counter (kernels/event_loop/kernel.py),
 # read here so a run can show that its buckets went through the kernel.
-# "seconds" splits the wall time of sweep() calls by stage; device stages
-# are closed by a synchronize when the device is a CUDA device.
+# "seconds" splits the wall time of sweep() calls by stage ("draws" holds
+# both state-independent precomputes: the draw stream and, open loop, the
+# arrival plan); device stages are closed by a synchronize when the device
+# is a CUDA device.
 _STATS = {"dispatches": 0}
 _SECONDS = {"lower": 0.0, "draws": 0.0, "engine": 0.0, "aggregate": 0.0}
 
@@ -92,10 +100,10 @@ class BatchResult(NamedTuple):
     reacquires: np.ndarray        # (S,)
     passes: np.ndarray            # (S,)
     # open-loop (Workload.arrivals) extras — None on closed-loop runs
-    arr_ns: np.ndarray | None = None
-    wait_ns: np.ndarray | None = None
-    sojourn_ns: np.ndarray | None = None
-    rstat: np.ndarray | None = None
+    arr_ns: np.ndarray | None = None      # (S, R) request arrival times
+    wait_ns: np.ndarray | None = None     # (S, R) queue waits, -1 padded
+    sojourn_ns: np.ndarray | None = None  # (S, R) sojourns, -1 padded
+    rstat: np.ndarray | None = None       # (S, R) traffic status codes
 
     @property
     def n_seeds(self) -> int:
@@ -106,10 +114,36 @@ class BatchResult(NamedTuple):
         return self.arr_ns is not None
 
     def result(self, i: int) -> SimResult:
+        extras = {}
+        if self.open_loop:
+            extras = dict(arr_ns=self.arr_ns[i], wait_ns=self.wait_ns[i],
+                          sojourn_ns=self.sojourn_ns[i],
+                          rstat=self.rstat[i])
         return SimResult(int(self.ops[i]), int(self.sim_ns[i]),
                          float(self.throughput_mops[i]), self.lat_ns[i],
                          self.per_thread_ops[i], int(self.reacquires[i]),
-                         int(self.passes[i]))
+                         int(self.passes[i]), **extras)
+
+    # -- open-loop serving aggregates --------------------------------------
+
+    def serving(self, i: int) -> dict:
+        """One seed's ``traffic.metrics.serving_summary`` dict."""
+        if not self.open_loop:
+            raise ValueError("serving() needs an open-loop run "
+                             "(Workload.arrivals)")
+        return serving_summary(self.arr_ns[i], self.wait_ns[i],
+                               self.sojourn_ns[i], self.rstat[i],
+                               int(self.sim_ns[i]))
+
+    def serving_mean(self) -> dict:
+        """Seed-averaged serving summary (nan-safe over empty seeds)."""
+        rows = [self.serving(i) for i in range(self.n_seeds)]
+        out = {}
+        for k in rows[0]:
+            vals = np.asarray([r[k] for r in rows], np.float64)
+            finite = vals[np.isfinite(vals)]
+            out[k] = float(finite.mean()) if len(finite) else float("nan")
+        return out
 
     # -- throughput aggregates ---------------------------------------------
 
@@ -172,16 +206,18 @@ def _clock(dev) -> float:
 def _exec_bucket(key, thread_node, lock_node, wl: WorkloadOperands,
                  backend: str, dev):
     """Run one flattened bucket (B rows) in one engine call and return the
-    6 output arrays as numpy. ``wl`` leaves (numpy) carry the flattened
-    (workload x seed) axis B."""
-    alg, T, N, K, n_events, _R = key
+    6 output arrays (10 for an open-loop bucket) as numpy. ``wl`` leaves
+    (numpy) carry the flattened (workload x seed) axis B."""
+    alg, T, N, K, n_events, R = key
     t0 = _clock(dev)
     wd = to_device(wl, dev)
     streams = precompute_draws(wd.seed, wd.edges, wd.zcdf, n_events, N,
                                K // N, rw=alg == "alock-rw", device=dev)
+    plan = precompute_plan(wd, n_events, device=dev) if R else None
     t1 = _clock(dev)
     out = run_events(alg, T, N, K, n_events, wd, thread_node, lock_node,
-                     backend=backend, device=dev, streams=streams)
+                     backend=backend, device=dev, streams=streams,
+                     plan=plan)
     t2 = _clock(dev)
     out = tuple(o.cpu().numpy() for o in out)
     _SECONDS["draws"] += t1 - t0
@@ -227,10 +263,7 @@ def sweep(configs: Sequence[SimConfig | Workload], n_seeds: int = 1,
     backend = resolve_backend(backend, dev)
     configs = list(configs)
     t_start = time.perf_counter()
-    workloads = [as_workload(c) for c in configs]
-    if any(w.arrivals is not None for w in workloads):
-        raise NotImplementedError(OPEN_LOOP_MSG)
-    lowered = [lower(w, n_events, cm) for w in workloads]
+    lowered = [lower(as_workload(c), n_events, cm) for c in configs]
     buckets: dict[tuple, list[int]] = {}
     for i, lw in enumerate(lowered):
         buckets.setdefault(lw.shape_key, []).append(i)
@@ -245,6 +278,7 @@ def sweep(configs: Sequence[SimConfig | Workload], n_seeds: int = 1,
         C, S = len(idxs), n_seeds
         # scenarios with fewer phases pad up to the bucket max with
         # unreachable phases, so mixed phase programs share one engine call
+        # (open-loop arrival rows pad identically; R is part of the key)
         Pmax = max(lowered[i].operands.n_phases for i in idxs)
         loc = np.empty((C, S, Pmax, T), np.float32)
         zc = np.empty((C, S, Pmax, kpn), np.float32)
@@ -283,12 +317,15 @@ def sweep(configs: Sequence[SimConfig | Workload], n_seeds: int = 1,
         _SECONDS["lower"] += time.perf_counter() - t_start
         outs = _exec_bucket(key, thread_node, lock_node, wl, backend, dev)
         t_start = time.perf_counter()
-        done, lat, _lat_n, t_end, nreacq, npass = outs
+        done, lat, _lat_n, t_end, nreacq, npass = outs[:6]
         done = done.reshape(C, S, T)
         lat = lat.reshape(C, S, LAT_SAMPLES)
         t_end = t_end.reshape(C, S)
         nreacq = nreacq.reshape(C, S)
         npass = npass.reshape(C, S)
+        extras = None
+        if R:
+            extras = tuple(o.reshape(C, S, R) for o in outs[6:])
 
         for row, i in enumerate(idxs):
             ops = done[row].sum(axis=1).astype(np.int64)
@@ -296,8 +333,12 @@ def sweep(configs: Sequence[SimConfig | Workload], n_seeds: int = 1,
             # per-element arithmetic matches simulate()'s scalar formula
             # bitwise: ops / sim_ns * 1e3 in float64 either way
             mops = ops / sim_ns * 1e3
+            kw = {}
+            if extras is not None:
+                kw = dict(arr_ns=extras[0][row], wait_ns=extras[1][row],
+                          sojourn_ns=extras[2][row], rstat=extras[3][row])
             out[i] = BatchResult(configs[i], n_events, sd[row], ops,
                                  sim_ns, mops, lat[row], done[row],
-                                 nreacq[row], npass[row])
+                                 nreacq[row], npass[row], **kw)
         _SECONDS["aggregate"] += time.perf_counter() - t_start
     return out

@@ -21,8 +21,9 @@ defaults to ``"cuda"``; without a CUDA device that raises.
 
 Workloads are declarative ``repro_torch.workloads.Workload`` specs lowered
 to ``WorkloadOperands``; a legacy flat ``SimConfig`` rides the
-``from_simconfig`` adapter. This slice runs the closed loop only:
-open-loop specs (``Workload.arrivals``) raise ``NotImplementedError``.
+``from_simconfig`` adapter. Open-loop specs (``Workload.arrivals``) also
+return the per-request arrays ``arr_ns / wait_ns / sojourn_ns / rstat``
+(``repro_torch.traffic``).
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import numpy as np
 
 from repro_torch.core.cost_model import CostModel
 from repro_torch.device import resolve_backend, resolve_device
-from repro_torch.kernels.event_loop.ops import OPEN_LOOP_MSG, run_events
+from repro_torch.kernels.event_loop.ops import run_events
 from repro_torch.kernels.event_loop.ref import LAT_SAMPLES
 from repro_torch.workloads import (Workload, WorkloadOperands, as_workload,
                                    lower, zipf_cdf)
@@ -73,10 +74,10 @@ class SimResult(NamedTuple):
     reacquires: int = 0       # budget-exhaustion pReacquire events
     passes: int = 0           # MCS lock passes
     # open-loop (Workload.arrivals) extras — None on closed-loop runs
-    arr_ns: np.ndarray | None = None
-    wait_ns: np.ndarray | None = None
-    sojourn_ns: np.ndarray | None = None
-    rstat: np.ndarray | None = None
+    arr_ns: np.ndarray | None = None      # (R,) request arrival times
+    wait_ns: np.ndarray | None = None     # (R,) queue wait, -1 = never served
+    sojourn_ns: np.ndarray | None = None  # (R,) total, -1 = never completed
+    rstat: np.ndarray | None = None       # (R,) traffic status codes
 
 
 def topology(alg: str, n_nodes: int, threads_per_node: int, n_locks: int,
@@ -111,17 +112,19 @@ def simulate(cfg: SimConfig | Workload, n_events: int = 400_000,
     dev = resolve_device(device)
     backend = resolve_backend(backend, dev)
     w = as_workload(cfg)
-    if w.arrivals is not None:
-        raise NotImplementedError(OPEN_LOOP_MSG)
     lw = lower(w, n_events, cm)
     T, N, K = lw.n_threads, w.n_nodes, w.n_locks
     thread_node, lock_node, _ = topology(w.alg, N, w.threads_per_node, K, cm)
     batched = WorkloadOperands(*(np.asarray(a)[None] for a in lw.operands))
     out = run_events(w.alg, T, N, K, n_events, batched, thread_node,
                      lock_node, backend=backend, device=dev)
-    done, lat, _lat_n, t_end, nreacq, npass = (
-        o[0].cpu().numpy() for o in out)
+    out = [o[0].cpu().numpy() for o in out]
+    done, lat, _lat_n, t_end, nreacq, npass = out[:6]
+    extras = {}
+    if len(out) > 6:        # open-loop run: per-request serving arrays
+        extras = dict(arr_ns=out[6], wait_ns=out[7], sojourn_ns=out[8],
+                      rstat=out[9])
     ops = int(done.sum())
     sim_ns = max(int(t_end), 1)
     return SimResult(ops, sim_ns, ops / sim_ns * 1e3, lat, done,
-                     int(nreacq), int(npass))
+                     int(nreacq), int(npass), **extras)

@@ -4,7 +4,8 @@
 //
 // Replaces the TPU kernel src/repro/kernels/event_loop/kernel.py::
 // event_loop_kernel (launched by the pl.pallas_call in
-// src/repro/kernels/event_loop/ops.py::_pallas_events), closed loop only.
+// src/repro/kernels/event_loop/ops.py::_pallas_events), closed loop and
+// open loop (R > 0 request slots).
 // Its plain PyTorch version is repro_torch/kernels/event_loop/ref.py::
 // run_events_plain; the two are held equal bit for bit on the card.
 //
@@ -13,6 +14,12 @@
 //   -> one lock-machine transition of thread tid (14 PCs, 18 for alock-rw)
 //   -> cost opcode -> RNIC busy-clock serialisation -> new ready time
 //   -> completion accounting (per-thread counts, latency ring).
+// The open loop (template flag OPEN) adds per event: idle threads wake at
+// the earliest available arrival, the requests that have arrived by `now`
+// are ingested (token rejects and the tail beyond the queue bound drop),
+// an idle selected thread takes the FIFO head, an idle thread with nothing
+// to take makes no step (step_ok false), and the finishing release of a
+// bound request stamps its sojourn.
 //
 // What bounds it on this card: latency, not bytes and not operations. One
 // replica is a chain of n_events dependent steps (each step's argmin needs
@@ -32,9 +39,21 @@
 // butterfly; lane 0 runs the transition as a real switch on the PC with
 // direct indexed writes. The draw streams are read 32 events at a time,
 // one coalesced load per lane, and handed to the step by a shuffle.
-// Clocks are native 64-bit integers. T, N, K, P, n_events and lat_samples
-// are run-time arguments; only the algorithm is a template parameter, so
-// one build serves every shape bucket.
+// Clocks are native 64-bit integers. T, N, K, P, R, n_events and
+// lat_samples are run-time arguments; the algorithm and OPEN (R > 0) are
+// template parameters, so one build serves every shape bucket and the
+// closed-loop instantiations carry no open-loop code.
+//
+// Open loop: the request rows (arrival times, token-admit mask, its prefix
+// count, queue bounds, status) and the per-thread bound request live in
+// shared memory too (about 6 KB at R = 256); the queue pointer and length
+// are warp-uniform registers. The R-wide work of an event (next arrival,
+// arrival count, ingestion, join count, FIFO head) is warp-parallel, lane l
+// owning slots l, l+32, ...; its reductions are exact integer sums and
+// minima over (value, slot) pairs, so the lowest slot wins. Lane 0 keeps the
+// transition. Queue waits and sojourns go straight to device memory: each
+// slot is written at most once, at dispatch or at completion, into outputs
+// the wrapper pre-fills with -1.
 //
 // Numerics: costs scale as rintf(__fmul_rn(float(cost), mult)) (round half
 // to even, no FMA contraction: build without --use_fast_math); the two
@@ -84,7 +103,15 @@ struct Args {
     long long* t_end;        // (B,)
     int* nreacq;             // (B,)
     int* npass;              // (B,)
-    int T, N, K, P, n_events, lat_samples;
+    // open loop (R > 0)
+    const long long* arr;    // (B, R) arrival times
+    const int* tok;          // (B, R) 1 = token-bucket admitted
+    const int* tokcum;       // (B, R) exclusive prefix count of tok
+    const int* qcap;         // (B, R) wait-queue bound
+    long long* wq;           // (B, R) queue waits, pre-filled with -1
+    long long* soj;          // (B, R) sojourns, pre-filled with -1
+    int* rstat;              // (B, R) final request status
+    int T, N, K, P, R, n_events, lat_samples;
 };
 
 __host__ __device__ constexpr bool alock_family(int alg) {
@@ -97,19 +124,46 @@ __host__ __device__ constexpr int k_rows(int alg) {
 }
 
 constexpr int T_ROWS_I32 = 7;   // pc budget nxt prev target cohort done
+constexpr int R_ROWS_I32 = 4;   // rstat tok tokcum qcap
+
+// request-slot status codes (repro_torch/traffic/metrics.py)
+enum Rstat { PENDING = 0, IN_SERVICE = 1, DROPPED = 2, COMPLETED = 3 };
 
 __host__ __device__ inline size_t smem_bytes(int alg, int T, int N, int K,
-                                             int P) {
-    return sizeof(long long) * (2 * (size_t)T + N)
+                                             int P, int R) {
+    // open loop: arr (R x i64), four R-sized i32 rows, curreq (T x i32)
+    const size_t open_i32 = R > 0 ? (size_t)R_ROWS_I32 * R + T : 0;
+    return sizeof(long long) * (2 * (size_t)T + N + R)
          + sizeof(int) * ((size_t)k_rows(alg) * K + (size_t)T_ROWS_I32 * T
-                          + P);
+                          + P + open_i32);
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+    return v;
+}
+
+__device__ __forceinline__ int warp_min(int v) {
+    for (int off = 16; off > 0; off >>= 1) {
+        const int o = __shfl_xor_sync(FULL, v, off);
+        v = o < v ? o : v;
+    }
+    return v;
+}
+
+__device__ __forceinline__ long long warp_min(long long v) {
+    for (int off = 16; off > 0; off >>= 1) {
+        const long long o = __shfl_xor_sync(FULL, v, off);
+        v = o < v ? o : v;
+    }
+    return v;
 }
 
 __device__ __forceinline__ int scale_cost(int c, float m) {
     return (int)rintf(__fmul_rn((float)c, m));
 }
 
-template <int ALG>
+template <int ALG, bool OPEN>
 __global__ void __launch_bounds__(32)
 event_loop_kernel(const Args a) {
     constexpr bool FAM = alock_family(ALG);
@@ -121,6 +175,7 @@ event_loop_kernel(const Args a) {
     const int b = blockIdx.x;
     const int lane = threadIdx.x;
     const int T = a.T, N = a.N, K = a.K, P = a.P;
+    const int R = OPEN ? a.R : 0;
     const int kpn = K / N;
     const bool multi = P > 1;
 
@@ -128,7 +183,8 @@ event_loop_kernel(const Args a) {
     long long* ready = reinterpret_cast<long long*>(smem_raw);
     long long* opst = ready + T;
     long long* busy = opst + T;
-    int* t0 = reinterpret_cast<int*>(busy + N);   // tail 0, or the lock word
+    long long* arr = busy + N;                    // open loop: arrival times
+    int* t0 = reinterpret_cast<int*>(arr + R);    // tail 0, or the lock word
     int* t1 = FAM ? t0 + K : t0;
     int* vic = FAM ? t1 + K : t0;
     int* wrd = RW ? vic + K : t0;                 // reader counts
@@ -140,6 +196,11 @@ event_loop_kernel(const Args a) {
     int* coh = tgt + T;
     int* done = coh + T;
     int* edges = done + T;
+    int* rstat = edges + P;                       // open loop from here on
+    int* tok = rstat + R;
+    int* tokcum = tok + R;
+    int* qcap = tokcum + R;
+    int* curreq = qcap + R;                       // (T,) bound request, -1
 
     for (int k = lane; k < k_rows(ALG) * K; k += 32) t0[k] = 0;
     for (int t = lane; t < T; t += 32) {
@@ -149,6 +210,18 @@ event_loop_kernel(const Args a) {
     }
     for (int n = lane; n < N; n += 32) busy[n] = 0;
     for (int p = lane; p < P; p += 32) edges[p] = a.edges[(size_t)b * P + p];
+    int arrptr = 0, qlen = 0;                     // warp-uniform
+    if constexpr (OPEN) {
+        const size_t r0 = (size_t)b * R;
+        for (int k = lane; k < R; k += 32) {
+            arr[k] = a.arr[r0 + k];
+            tok[k] = a.tok[r0 + k];
+            tokcum[k] = a.tokcum[r0 + k];
+            qcap[k] = a.qcap[r0 + k];
+            rstat[k] = PENDING;
+        }
+        for (int t = lane; t < T; t += 32) curreq[t] = -1;
+    }
     __syncwarp();
 
     const size_t ev0 = (size_t)b * a.n_events;
@@ -221,11 +294,30 @@ event_loop_kernel(const Args a) {
             }
         }
 
+        // -- open loop: idle threads (NCS, no request bound) wake at the
+        // earliest arrival still available (pending, token-admitted)
+        long long next_arr = NEVER;
+        if constexpr (OPEN) {
+            for (int k = lane; k < R; k += 32) {
+                if (rstat[k] == PENDING && tok[k] == 1 && arr[k] < next_arr)
+                    next_arr = arr[k];
+            }
+            next_arr = warp_min(next_arr);
+        }
+        auto wake = [&](int t) {
+            const long long r = ready[t];
+            if constexpr (OPEN) {
+                if (pc[t] == NCS && curreq[t] < 0)
+                    return r > next_arr ? r : next_arr;
+            }
+            return r;
+        };
+
         // -- tid = argmin over schedulable ready clocks, lowest tid on ties
         long long best = NEVER;
         int tid = INT_MAX;
         for (int t = lane; t < T; t += 32) {
-            const long long r = (multi && act[t] == 0) ? NEVER : ready[t];
+            const long long r = (multi && act[t] == 0) ? NEVER : wake(t);
             if (r < best || (r == best && t < tid)) { best = r; tid = t; }
         }
         for (int off = 16; off > 0; off >>= 1) {
@@ -234,12 +326,58 @@ event_loop_kernel(const Args a) {
             if (ob < best || (ob == best && ot < tid)) { best = ob; tid = ot; }
         }
 
-        if (lane == 0) {
+        // -- open loop: arrival ingestion and dispatch, warp-parallel over
+        // the request slots (every lane computes the same uniform values)
+        bool step_ok = true;
+        long long now_open = 0;
+        if constexpr (OPEN) {
+            now_open = wake(tid);
+            const bool live = now_open != NEVER;
+            const bool pend_tid = pc[tid] == NCS && curreq[tid] < 0;
+            // every request with arr <= now joins the wait queue or drops
+            // (token reject, or beyond the queue bound: `rank` orders the
+            // admitted newcomers so the tail drop is exact)
+            int cnt_now = arrptr;
+            if (live) {
+                int c = 0;
+                for (int k = lane; k < R; k += 32) c += arr[k] <= now_open;
+                cnt_now = warp_sum(c);
+            }
+            const int tok_base = tokcum[arrptr < R ? arrptr : R - 1];
+            int joined = 0;
+            for (int k = lane; k < R; k += 32) {
+                if (k >= arrptr && k < cnt_now) {
+                    const int rank = tokcum[k] - tok_base;
+                    if (tok[k] == 1 && rank < qcap[k] - qlen) ++joined;
+                    else rstat[k] = DROPPED;
+                }
+            }
+            qlen += warp_sum(joined);
+            arrptr = cnt_now;
+            // the FIFO head: lowest queued slot
+            int head = INT_MAX;
+            for (int k = lane; k < arrptr; k += 32) {
+                if (rstat[k] == PENDING) { head = k; break; }
+            }
+            head = warp_min(head);
+            const bool do_disp = live && pend_tid && head != INT_MAX;
+            __syncwarp();           // every lane has read curreq[tid]
+            if (do_disp && lane == 0) {
+                rstat[head] = IN_SERVICE;
+                curreq[tid] = head;
+                a.wq[(size_t)b * R + head] = now_open - arr[head];
+            }
+            qlen -= do_disp;
+            // an idle thread with nothing to take makes no machine step
+            step_ok = live && (!pend_tid || do_disp);
+        }
+
+        if (lane == 0 && step_ok) {
             const size_t bp = (size_t)b * P + ph;
             const int* cst = a.cost_rows + bp * N_COST_ROWS;
             const int* binit = a.b_init + bp * 2;
             const float* nm = a.node_mult + bp * N;
-            const long long now = ready[tid];
+            const long long now = OPEN ? now_open : ready[tid];
             const int p = pc[tid];
             const int me = tid + 1;
             const int mynode = tn[tid];
@@ -444,6 +582,17 @@ event_loop_kernel(const Args a) {
                 lat[lat_n % a.lat_samples] = now - opst[tid];
                 lat_n += 1;
                 done[tid] += 1;
+                if constexpr (OPEN) {
+                    // departure: the finishing release frees the thread
+                    // and stamps the request's sojourn at the step's
+                    // completion time
+                    const int rq = curreq[tid];
+                    if (rq >= 0) {
+                        a.soj[(size_t)b * R + rq] = new_ready - arr[rq];
+                        rstat[rq] = COMPLETED;
+                        curreq[tid] = -1;
+                    }
+                }
             }
             ready[tid] = new_ready;
             if (p == NCS) opst[tid] = new_ready;
@@ -468,17 +617,33 @@ event_loop_kernel(const Args a) {
         a.nreacq[b] = nreacq;
         a.npass[b] = npass;
     }
+    if constexpr (OPEN) {
+        for (int k = lane; k < R; k += 32)
+            a.rstat[(size_t)b * R + k] = rstat[k];
+    }
 }
 
-template <int ALG>
+template <int ALG, bool OPEN>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-    const size_t smem = smem_bytes(ALG, a.T, a.N, a.K, a.P);
+    const size_t smem = smem_bytes(ALG, a.T, a.N, a.K, a.P, OPEN ? a.R : 0);
     cudaError_t err = cudaFuncSetAttribute(
-        event_loop_kernel<ALG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        event_loop_kernel<ALG, OPEN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    event_loop_kernel<ALG><<<B, 32, smem, stream>>>(a);
+    event_loop_kernel<ALG, OPEN><<<B, 32, smem, stream>>>(a);
     return cudaGetLastError();
+}
+
+template <bool OPEN>
+cudaError_t launch_alg(int alg, const Args& a, int B, cudaStream_t s) {
+    switch (alg) {
+    case ALG_ALOCK: return launch<ALG_ALOCK, OPEN>(a, B, s);
+    case ALG_MCS: return launch<ALG_MCS, OPEN>(a, B, s);
+    case ALG_SPINLOCK: return launch<ALG_SPINLOCK, OPEN>(a, B, s);
+    case ALG_HLOCK: return launch<ALG_HLOCK, OPEN>(a, B, s);
+    case ALG_ALOCK_RW: return launch<ALG_ALOCK_RW, OPEN>(a, B, s);
+    default: return cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
@@ -487,9 +652,9 @@ extern "C" {
 
 // Dynamic shared memory one replica needs, in bytes (the wrapper prices
 // the same table in Python before it launches).
-int event_loop_smem_bytes(int alg, int T, int N, int K, int P) {
-    if (alg < 0 || alg >= ALG_COUNT) return -1;
-    return (int)smem_bytes(alg, T, N, K, P);
+int event_loop_smem_bytes(int alg, int T, int N, int K, int P, int R) {
+    if (alg < 0 || alg >= ALG_COUNT || R < 0) return -1;
+    return (int)smem_bytes(alg, T, N, K, P, R);
 }
 
 const char* event_loop_error_string(int code) {
@@ -507,7 +672,9 @@ int event_loop_launch(
     const void* lock_node, const void* rack,
     void* done, void* lat, void* lat_n, void* t_end, void* nreacq,
     void* npass,
-    int B, int T, int N, int K, int P, int n_events, int lat_samples,
+    const void* arr, const void* tok, const void* tokcum, const void* qcap,
+    void* wq, void* soj, void* rstat,
+    int B, int T, int N, int K, int P, int R, int n_events, int lat_samples,
     void* stream) {
     Args a;
     a.u1 = (const float*)u1; a.r2 = (const int*)r2; a.r3 = (const int*)r3;
@@ -524,17 +691,15 @@ int event_loop_launch(
     a.done = (int*)done; a.lat = (long long*)lat; a.lat_n = (int*)lat_n;
     a.t_end = (long long*)t_end; a.nreacq = (int*)nreacq;
     a.npass = (int*)npass;
-    a.T = T; a.N = N; a.K = K; a.P = P; a.n_events = n_events;
+    a.arr = (const long long*)arr; a.tok = (const int*)tok;
+    a.tokcum = (const int*)tokcum; a.qcap = (const int*)qcap;
+    a.wq = (long long*)wq; a.soj = (long long*)soj; a.rstat = (int*)rstat;
+    a.T = T; a.N = N; a.K = K; a.P = P; a.R = R; a.n_events = n_events;
     a.lat_samples = lat_samples;
     cudaStream_t s = (cudaStream_t)stream;
-    switch (alg) {
-    case ALG_ALOCK: return (int)launch<ALG_ALOCK>(a, B, s);
-    case ALG_MCS: return (int)launch<ALG_MCS>(a, B, s);
-    case ALG_SPINLOCK: return (int)launch<ALG_SPINLOCK>(a, B, s);
-    case ALG_HLOCK: return (int)launch<ALG_HLOCK>(a, B, s);
-    case ALG_ALOCK_RW: return (int)launch<ALG_ALOCK_RW>(a, B, s);
-    default: return (int)cudaErrorInvalidValue;
-    }
+    if (R < 0) return (int)cudaErrorInvalidValue;
+    return (int)(R > 0 ? launch_alg<true>(alg, a, B, s)
+                       : launch_alg<false>(alg, a, B, s));
 }
 
 }  // extern "C"

@@ -18,8 +18,21 @@ spec:
 ``ExecOptions`` is the immutable how-to-execute value (backend, device)
 threaded explicitly through ``Experiment.run`` — there is no process-wide
 execution state.
+
+Named scenario programs live in the registry (``run_scenario`` /
+``scenario_names``). A scenario can carry an :class:`Slo` (simulated-p99
+ceiling, wall-clock events/sec floor), evaluated by :func:`check_slo`.
 """
 from repro_torch.experiments.experiment import Experiment, ExperimentResult
 from repro_torch.experiments.options import ExecOptions
+from repro_torch.experiments.registry import (Scenario, fig5_workloads,
+                                              get_scenario, run_scenario,
+                                              scenario, scenario_names,
+                                              scenario_workloads)
+from repro_torch.experiments.slo import Slo, SloReport, check_slo
 
-__all__ = ["ExecOptions", "Experiment", "ExperimentResult"]
+__all__ = [
+    "ExecOptions", "Experiment", "ExperimentResult", "Scenario", "Slo",
+    "SloReport", "check_slo", "fig5_workloads", "get_scenario",
+    "run_scenario", "scenario", "scenario_names", "scenario_workloads",
+]

@@ -1,11 +1,12 @@
 """Wrapper of the CUDA event-loop kernel (``csrc/event_loop.cu``).
 
 Replaces the TPU kernel ``repro/kernels/event_loop/kernel.py::
-event_loop_kernel``. The kernel is latency-bound on this card — a replica
-is one chain of ``n_events`` dependent steps — so its design keeps a
-replica's whole machine state in shared memory, gives each replica one
-warp, and reads device memory only for the draw streams and the latency
-ring (see the header of the ``.cu`` file).
+event_loop_kernel``, closed and open loop. The kernel is latency-bound on
+this card — a replica is one chain of ``n_events`` dependent steps — so
+its design keeps a replica's whole machine state (and, open loop, its
+request rows) in shared memory, gives each replica one warp, and reads
+device memory only for the draw streams, the latency ring and the
+per-request waits and sojourns (see the header of the ``.cu`` file).
 
 Build: at the first launch the sources under ``csrc/`` are compiled by
 ``nvcc`` for ``sm_90a`` into ``build/`` at the repository root, a shared
@@ -29,8 +30,6 @@ import time
 from pathlib import Path
 
 import torch
-
-from repro_torch.kernels.event_loop.ref import OPEN_LOOP_MSG
 
 ALGS = ("alock", "mcs", "spinlock", "hlock", "alock-rw")
 
@@ -112,9 +111,9 @@ def load():
         return _LIB
     lib = ctypes.CDLL(str(build()))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.event_loop_launch.argtypes = [ci] + [vp] * 21 + [ci] * 7 + [vp]
+    lib.event_loop_launch.argtypes = [ci] + [vp] * 28 + [ci] * 8 + [vp]
     lib.event_loop_launch.restype = ci
-    lib.event_loop_smem_bytes.argtypes = [ci] * 5
+    lib.event_loop_smem_bytes.argtypes = [ci] * 6
     lib.event_loop_smem_bytes.restype = ci
     lib.event_loop_error_string.argtypes = [ci]
     lib.event_loop_error_string.restype = ctypes.c_char_p
@@ -122,12 +121,16 @@ def load():
     return lib
 
 
-def smem_table(alg: str, T: int, N: int, K: int, P: int) -> dict:
+def smem_table(alg: str, T: int, N: int, K: int, P: int,
+               R: int = 0) -> dict:
     """name -> bytes of every per-replica shared-memory buffer of one
-    block (one replica per block); mirrors the carve-up in the ``.cu``."""
+    block (one replica per block); mirrors the carve-up in the ``.cu``.
+    ``R > 0`` adds the open loop's request rows and bound requests."""
     fam = alg in ("alock", "hlock", "alock-rw")
-    table = {"ready": 8 * T, "op_start": 8 * T, "busy": 8 * N,
-             "tail0/word": 4 * K}
+    table = {"ready": 8 * T, "op_start": 8 * T, "busy": 8 * N}
+    if R:
+        table["arrival"] = 8 * R
+    table["tail0/word"] = 4 * K
     if fam:
         table["tail1"] = 4 * K
         table["victim"] = 4 * K
@@ -136,16 +139,20 @@ def smem_table(alg: str, T: int, N: int, K: int, P: int) -> dict:
     for name in ("pc", "budget", "nxt", "prev", "target", "cohort", "done"):
         table[name] = 4 * T
     table["edges"] = 4 * P
+    if R:
+        for name in ("rstat", "token", "token_cum", "queue_cap"):
+            table[name] = 4 * R
+        table["curreq"] = 4 * T
     return table
 
 
-def smem_bytes(alg: str, T: int, N: int, K: int, P: int) -> int:
+def smem_bytes(alg: str, T: int, N: int, K: int, P: int, R: int = 0) -> int:
     """Price the per-replica on-chip state before launch. Raises an
     actionable ``ValueError`` naming the dominant buffers when it exceeds
     what one block may hold (227 KB)."""
     if alg not in ALGS:
         raise ValueError(f"unknown algorithm {alg!r}; expected one of {ALGS}")
-    table = smem_table(alg, T, N, K, P)
+    table = smem_table(alg, T, N, K, P, R)
     total = sum(table.values())
     if total > SMEM_LIMIT:
         top = sorted(table.items(), key=lambda kv: -kv[1])[:3]
@@ -153,10 +160,10 @@ def smem_bytes(alg: str, T: int, N: int, K: int, P: int) -> int:
         raise ValueError(
             f"event-loop kernel cannot fit one replica's state into the "
             f"{SMEM_LIMIT:,}B of shared memory a block may use: "
-            f"(alg={alg}, T={T}, N={N}, K={K}, P={P}) needs {total:,}B "
-            f"(largest buffers: {detail}). The K-sized lock tables "
-            f"dominate: lower n_locks, or run this shape with "
-            f"backend='plain'.")
+            f"(alg={alg}, T={T}, N={N}, K={K}, P={P}, R={R}) needs "
+            f"{total:,}B (largest buffers: {detail}). Lower n_locks (the "
+            f"K-sized lock tables) or max_requests (the R-sized request "
+            f"rows), or run this shape with backend='plain'.")
     return total
 
 
@@ -173,17 +180,20 @@ def _check(name, t, dtype, shape):
 
 
 def run_events_kernel(alg, T, N, K, n_events, wl, thread_node, lock_node,
-                      streams, *, lat_samples: int):
+                      streams, *, lat_samples: int, plan=None, arr=None):
     """Launch the CUDA event loop for B replicas on the current stream.
 
     Same contract as ``ref.run_events_plain``. The wrapper checks device,
     dtype, shape and contiguity, allocates and pre-fills every output
-    (``lat = -1``), launches without synchronising, checks the launch
-    error and raises on anything the kernel does not take.
+    (``lat``, ``wq``, ``soj`` = -1), launches without synchronising,
+    checks the launch error and raises on anything the kernel does not
+    take.
     """
     global LAUNCHES
-    if wl.arr_fix.shape[-1] > 0:
-        raise NotImplementedError(OPEN_LOOP_MSG)
+    R = wl.arr_fix.shape[-1]
+    if R > 0 and (plan is None or arr is None):
+        raise ValueError("an open-loop run (R > 0) needs its arrival plan "
+                         "and arrival times")
     if n_events < 1 or lat_samples < 1:
         raise ValueError(f"need n_events >= 1 and lat_samples >= 1, got "
                          f"({n_events}, {lat_samples})")
@@ -193,7 +203,7 @@ def run_events_kernel(alg, T, N, K, n_events, wl, thread_node, lock_node,
     B = wl.seed.shape[0]
     P = wl.edges.shape[1]
     is_rw, is_hl = alg == "alock-rw", alg == "hlock"
-    smem_bytes(alg, T, N, K, P)
+    smem_bytes(alg, T, N, K, P, R)
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     u1, r2, r3 = streams[:3]
     _check("u1", u1, f32, (B, n_events))
@@ -218,8 +228,16 @@ def run_events_kernel(alg, T, N, K, n_events, wl, thread_node, lock_node,
     if is_hl:
         rack = wl.rack
         _check("rack", rack, i32, (B, N))
+    tok = tokcum = qcap = wq = soj = rstat = None
+    if R:
+        _check("arr", arr, i64, (B, R))
+        for name, t in (("tok", plan.tok), ("tokcum", plan.tokcum),
+                        ("qcap", plan.qcap)):
+            _check(name, t, i32, (B, R))
+        tok, tokcum, qcap = plan.tok, plan.tokcum, plan.qcap
     dev = u1.device
-    for t in (wl.edges, thread_node, lock_node, r2, r3):
+    for t in (wl.edges, thread_node, lock_node, r2, r3) + (
+            (arr, tok) if R else ()):
         if t.device != dev:
             raise ValueError("all operands must lie on one CUDA device")
 
@@ -230,6 +248,10 @@ def run_events_kernel(alg, T, N, K, n_events, wl, thread_node, lock_node,
     t_end = torch.zeros(B, dtype=i64, device=dev)
     nreacq = torch.zeros(B, dtype=i32, device=dev)
     npass = torch.zeros(B, dtype=i32, device=dev)
+    if R:
+        wq = torch.full((B, R), -1, dtype=i64, device=dev)
+        soj = torch.full((B, R), -1, dtype=i64, device=dev)
+        rstat = torch.empty((B, R), dtype=i32, device=dev)   # kernel-written
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -245,13 +267,15 @@ def run_events_kernel(alg, T, N, K, n_events, wl, thread_node, lock_node,
             ptr(read_frac), ptr(wl.active), ptr(wl.b_init),
             ptr(wl.cost_rows), ptr(wl.node_mult), ptr(thread_node),
             ptr(lock_node), ptr(rack), ptr(done), ptr(lat), ptr(lat_n),
-            ptr(t_end), ptr(nreacq), ptr(npass), B, T, N, K, P, n_events,
-            lat_samples, stream)
+            ptr(t_end), ptr(nreacq), ptr(npass), ptr(arr), ptr(tok),
+            ptr(tokcum), ptr(qcap), ptr(wq), ptr(soj), ptr(rstat),
+            B, T, N, K, P, R, n_events, lat_samples, stream)
     if err != 0:
         msg = lib.event_loop_error_string(err).decode()
         raise RuntimeError(
             f"event-loop kernel launch failed for (alg={alg}, B={B}, T={T}, "
-            f"N={N}, K={K}, P={P}, n_events={n_events}): CUDA error {err} "
-            f"({msg})")
+            f"N={N}, K={K}, P={P}, R={R}, n_events={n_events}): CUDA error "
+            f"{err} ({msg})")
     LAUNCHES += 1
-    return done, lat, lat_n, t_end, nreacq, npass
+    out = (done, lat, lat_n, t_end, nreacq, npass)
+    return out + (arr, wq, soj, rstat) if R else out

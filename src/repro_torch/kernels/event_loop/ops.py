@@ -1,7 +1,8 @@
 """Public entry points of the event-loop engine.
 
 ``run_events`` takes a ``WorkloadOperands`` whose leaves carry a leading
-replica axis B and returns ``(done, lat, lat_n, t_end, nreacq, npass)``.
+replica axis B and returns ``(done, lat, lat_n, t_end, nreacq, npass)``,
+plus ``(arr, wq, soj, rstat)`` for an open-loop bucket (``R > 0``).
 ``backend="kernel"`` launches the hand-written CUDA kernel
 (``kernel.py`` / ``csrc/event_loop.cu``) and needs CUDA tensors;
 ``backend="plain"`` runs ``ref.run_events_plain`` on whatever device was
@@ -14,7 +15,10 @@ here (``precompute_draws``) with the counter-based generator of
 phase-resolved Zipf offset depend only on ``(seed, event index)``, never
 on simulation state. The thread-dependent half (comparing the uniform
 against ``locality[phase, tid]``) runs inside the loop, because ``tid`` is
-the argmin of the ready clocks and only exists at run time.
+the argmin of the ready clocks and only exists at run time. The open
+loop's arrival plan (``precompute_plan``: gaps, token-admit mask, its
+prefix count, queue bounds) is state-independent too and is computed the
+same way, before the loop.
 
 >>> from repro_torch.workloads import Workload, lower, to_device
 >>> from repro_torch.kernels.event_loop.ops import precompute_draws
@@ -34,8 +38,9 @@ import torch
 from repro_torch.core import prng
 from repro_torch.device import resolve_backend, resolve_device
 from repro_torch.kernels.event_loop import kernel as _kernel
-from repro_torch.kernels.event_loop.ref import (LAT_SAMPLES, OPEN_LOOP_MSG,
-                                                run_events_plain)
+from repro_torch.kernels.event_loop.ref import LAT_SAMPLES, run_events_plain
+from repro_torch.traffic.stream import (ArrivalPlan, arrival_plan,
+                                        arrival_times_i64)
 from repro_torch.workloads import WorkloadOperands, to_device
 
 #: bound on the (replica x event) elements hashed at once: every threefry
@@ -116,40 +121,64 @@ def _as_tensor(a, dev, dtype=None) -> torch.Tensor:
     return a.to(device=dev, dtype=dtype).contiguous()
 
 
+def precompute_plan(wl, n_events: int, device="cuda") -> ArrivalPlan:
+    """The state-independent request plan of an open-loop ``wl`` (leaves
+    with a leading replica axis B, ``R > 0``): ``traffic.stream.
+    arrival_plan`` on ``device``, the counterpart of ``precompute_draws``
+    for the arrival stream."""
+    dev = resolve_device(device)
+    return arrival_plan(to_device(WorkloadOperands(*wl), dev), n_events)
+
+
 def run_events(alg, T, N, K, n_events, wl, thread_node, lock_node, *,
                lat_samples: int = LAT_SAMPLES, backend: str = "auto",
-               device="cuda", streams=None):
-    """Batched closed-loop event loop.
+               device="cuda", streams=None, plan=None):
+    """Batched event loop, closed or open.
 
     ``wl`` is a ``WorkloadOperands`` with a leading replica axis B on
     every leaf (numpy arrays or tensors; moved to ``device``): locality
     (B,P,T) f32, zcdf (B,P,K//N) f32, edges/think_ns (B,P) i32, active
     (B,P,T) i32, b_init (B,P,2) i32, cost_rows (B,P,8) i32, node_mult
-    (B,P,N) f32, rack (B,N) i32, read_frac (B,P,T) f32, seed (B,) i32;
-    ``thread_node (T,)`` / ``lock_node (K,)`` broadcast. Returns ``(done
-    (B,T) i32, lat (B,lat_samples) i64, lat_n (B,) i32, t_end (B,) i64,
-    nreacq (B,) i32, npass (B,) i32)`` on ``device``.
+    (B,P,N) f32, the arrival rows, rack (B,N) i32, read_frac (B,P,T) f32,
+    seed (B,) i32; ``thread_node (T,)`` / ``lock_node (K,)`` broadcast.
+    Returns ``(done (B,T) i32, lat (B,lat_samples) i64, lat_n (B,) i32,
+    t_end (B,) i64, nreacq (B,) i32, npass (B,) i32)`` on ``device``; an
+    open-loop ``wl`` (``arr_fix (B,R)``, ``R > 0``) appends ``(arr (B,R)
+    i64, wq (B,R) i64, soj (B,R) i64, rstat (B,R) i32)``: arrival times,
+    queue waits and sojourns (-1 when never dispatched / completed) and
+    ``traffic.metrics`` status codes.
 
     ``streams`` injects a precomputed ``(u1, r2, r3[, u4])`` instead of
-    drawing it from ``wl.seed`` — the tests use it to tell a fault in the
-    engine from a fault in the generator.
+    drawing it from ``wl.seed``, and ``plan`` a precomputed
+    ``ArrivalPlan`` — the tests use them to tell a fault in the engine
+    from a fault in a generator.
     """
     dev = resolve_device(device)
     backend = resolve_backend(backend, dev)
     wl = to_device(WorkloadOperands(*wl), dev)
-    if wl.arr_fix.shape[-1] > 0:
-        raise NotImplementedError(OPEN_LOOP_MSG)
+    R = wl.arr_fix.shape[-1]
     B = wl.seed.shape[0]
     thread_node = _as_tensor(thread_node, dev, torch.int32)
     lock_node = _as_tensor(lock_node, dev, torch.int32)
+    arr = None
+    if R:
+        plan = (arrival_plan(wl, n_events) if plan is None else
+                ArrivalPlan(*(_as_tensor(a, dev, torch.int32)
+                              for a in plan)))
+        arr = arrival_times_i64(plan.gaps)
     if n_events < 1:
         # degenerate run: the loop's 0-iteration outputs
         z = torch.zeros(B, dtype=torch.int32, device=dev)
-        return (torch.zeros((B, T), dtype=torch.int32, device=dev),
-                torch.full((B, lat_samples), -1, dtype=torch.int64,
-                           device=dev),
-                z, torch.zeros(B, dtype=torch.int64, device=dev),
-                z.clone(), z.clone())
+        out = (torch.zeros((B, T), dtype=torch.int32, device=dev),
+               torch.full((B, lat_samples), -1, dtype=torch.int64,
+                          device=dev),
+               z, torch.zeros(B, dtype=torch.int64, device=dev),
+               z.clone(), z.clone())
+        if not R:
+            return out
+        m1 = torch.full((B, R), -1, dtype=torch.int64, device=dev)
+        return out + (arr, m1, m1.clone(),
+                      torch.zeros((B, R), dtype=torch.int32, device=dev))
     is_rw = alg == "alock-rw"
     if streams is None:
         streams = precompute_draws(wl.seed, wl.edges, wl.zcdf, n_events, N,
@@ -162,4 +191,4 @@ def run_events(alg, T, N, K, n_events, wl, thread_node, lock_node, *,
     run = _kernel.run_events_kernel if backend == "kernel" \
         else run_events_plain
     return run(alg, T, N, K, n_events, wl, thread_node, lock_node, streams,
-               lat_samples=lat_samples)
+               lat_samples=lat_samples, plan=plan, arr=arr)

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the next-event loop (closed loop).
+"""Plain PyTorch version of the next-event loop (closed and open loop).
 
 ``run_events_plain`` is the function the CUDA kernel
 (``csrc/event_loop.cu``) computes, written as ordinary tensor code:
@@ -23,6 +23,17 @@ Semantics (one replica; every replica is independent):
   (``round(f32(cost) * mult)``, half to even), and stamp the thread's new
   ready time; account completions (per-thread op counts, latency ring).
 
+Open loop (``R > 0`` request slots, an ``ArrivalPlan`` from
+``traffic/stream.py``): idle threads (NCS, no request bound) wake at the
+earliest available arrival instead of re-arming; every event first
+ingests the requests that have arrived by ``now`` (token-rejected ones and
+the tail beyond the queue bound drop), then an idle selected thread takes
+the FIFO head. An idle thread with nothing to take makes no step at all
+(``step_ok`` false: machine state, busy clock, ready clock and counters
+stay as they were), and a drained stream with every thread idle makes the
+event a no-op. The finishing release of a bound request stamps its
+sojourn and frees the thread.
+
 Clocks are int64 ns, machine state int32, the two probability compares
 f32 against f32.
 """
@@ -31,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import machine as mc
+from repro_torch.traffic.metrics import COMPLETED, DROPPED, IN_SERVICE
 
 LAT_SAMPLES = 1 << 15
 
@@ -38,11 +50,7 @@ LAT_SAMPLES = 1 << 15
 OP_LOCAL, OP_POLL, OP_CS, OP_THINK, OP_RDMA, OP_LOOP = range(6)
 
 _NEVER = torch.iinfo(torch.int64).max    # parked threads lose every argmin
-
-OPEN_LOOP_MSG = (
-    "open-loop workloads (Workload.arrivals, R > 0) are not ported yet — "
-    "ROADMAP Queue A, item 'open loop' (traffic/stream.py, "
-    "traffic/metrics.py and the R > 0 branch of the event loop)")
+_I32_MAX = torch.iinfo(torch.int32).max
 
 
 def _gat(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -67,17 +75,24 @@ def _scale_cost(c: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 
 
 def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
-                     streams, *, lat_samples: int = LAT_SAMPLES):
-    """Batched closed-loop event loop in plain tensor ops.
+                     streams, *, lat_samples: int = LAT_SAMPLES, plan=None,
+                     arr=None):
+    """Batched event loop in plain tensor ops.
 
     ``wl`` is a ``WorkloadOperands`` of tensors with a leading replica
     axis B; ``thread_node (T,)`` / ``lock_node (K,)`` int32 broadcast;
     ``streams`` is ``precompute_draws``' ``(u1, r2, r3[, u4])``, each
     ``(B, n_events)``. Returns ``(done (B,T) i32, lat (B,lat_samples) i64,
-    lat_n (B,) i32, t_end (B,) i64, nreacq (B,) i32, npass (B,) i32)``.
+    lat_n (B,) i32, t_end (B,) i64, nreacq (B,) i32, npass (B,) i32)``;
+    an open-loop ``wl`` (``R > 0``) also takes ``plan``, the
+    ``traffic.stream.ArrivalPlan`` of its replicas, and ``arr (B,R) i64``,
+    their arrival times (``arrival_times_i64(plan.gaps)``), and appends
+    ``(arr, wq, soj) (B,R) i64, rstat (B,R) i32``.
     """
-    if wl.arr_fix.shape[-1] > 0:
-        raise NotImplementedError(OPEN_LOOP_MSG)
+    R = wl.arr_fix.shape[-1]
+    if R > 0 and (plan is None or arr is None):
+        raise ValueError("an open-loop run (R > 0) needs its arrival plan "
+                         "and arrival times")
     is_hl = alg == "hlock"
     is_rw = alg == "alock-rw"
     is_alock = alg in ("alock", "hlock", "alock-rw")
@@ -113,6 +128,16 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
     ln = lock_node.to(dev).to(i32)[None].expand(B, K)
     rk = wl.rack.to(i32) if is_hl else None
     edges = wl.edges
+    if R:
+        tok, tokcum, qcap = plan.tok, plan.tokcum, plan.qcap
+        idx_r = torch.arange(R, dtype=i32, device=dev)[None]
+        rstat = zeros((B, R))
+        curreq = torch.full((B, T), -1, dtype=i32, device=dev)
+        arrptr, qlen = zeros(B), zeros(B)
+        wq = torch.full((B, R), -1, dtype=i64, device=dev)
+        soj = torch.full((B, R), -1, dtype=i64, device=dev)
+    machine = [a for a in (t0, t1, vic, wrd, pc, bud, nxt, prv, tgt, coh)
+               if a is not None]
 
     def at_phase(a, ph):
         return a[:, 0] if ph is None else a[rows, ph]
@@ -132,10 +157,19 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
             now_min = torch.where(cont_min == _NEVER, act_min, cont_min)
             ready = torch.where(
                 rejoin, torch.maximum(ready, now_min[:, None]), ready)
-            elig = torch.where(actm, ready, never)
         else:
             ph = None
-            elig = ready
+        if R:
+            # idle threads wake at the earliest available arrival; busy
+            # threads keep their own clocks
+            pend = (pc == mc.NCS) & (curreq < 0)
+            avail = (rstat == 0) & (tok == 1)
+            next_arr = torch.where(avail, arr, _NEVER).min(1).values
+            wake = torch.where(pend, torch.maximum(ready, next_arr[:, None]),
+                               ready)
+        else:
+            wake = ready
+        elig = torch.where(actm, wake, _NEVER) if P > 1 else wake
         loc_row = at_phase(wl.locality, ph)
         think_e = at_phase(wl.think_ns, ph)
         binit = at_phase(wl.b_init, ph)
@@ -145,7 +179,7 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
         # lowest index among the minimal clocks
         emin = elig.min(1).values
         tid = torch.where(elig == emin[:, None], tids, T).min(1).values
-        now = _gat(ready, tid)
+        now = _gat(wake, tid)
         me = (tid + 1).to(i32)
         p = _gat(pc, tid)
         tg, ch, bd = _gat(tgt, tid), _gat(coh, tid), _gat(bud, tid)
@@ -164,6 +198,34 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
             new_c = (node_w != mynode).to(i32)
         if is_rw:
             new_r = u4s[:, i] < _gat(at_phase(wl.read_frac, ph), tid)
+
+        if R:
+            # -- arrival ingestion: every request with arr <= now joins the
+            # wait queue or drops (token reject / queue full); `rank` orders
+            # the admitted newcomers so the tail drop is exact when a burst
+            # overshoots the remaining room
+            live = now != _NEVER
+            pend_tid = pend.gather(1, tid[:, None])[:, 0]
+            cnt_now = torch.where(live, (arr <= now[:, None]).sum(
+                1, dtype=i32), arrptr)
+            newly = (idx_r >= arrptr[:, None]) & (idx_r < cnt_now[:, None])
+            rank = tokcum - _gat(tokcum, arrptr.clamp(max=R - 1))[:, None]
+            join = newly & (tok == 1) & (rank < qcap - qlen[:, None])
+            rstat = torch.where(newly & ~join, DROPPED, rstat)
+            qlen = qlen + join.sum(1, dtype=i32)
+            arrptr = cnt_now
+            # -- dispatch: an idle selected thread takes the FIFO head -----
+            queued = (rstat == 0) & (idx_r < arrptr[:, None])
+            head = torch.where(queued, idx_r, _I32_MAX).min(1).values
+            do_disp = live & pend_tid & queued.any(1)
+            hd = head.clamp(max=R - 1)
+            _put(rstat, hd, IN_SERVICE, do_disp)
+            _put(curreq, tid, hd, do_disp)
+            _put(wq, hd, now - _gat(arr, hd), do_disp)
+            qlen = qlen - do_disp.to(i32)
+            # an idle thread with nothing to take makes no machine step
+            step_ok = live & (~pend_tid | do_disp)
+            before = [a.clone() for a in machine]
 
         # -- PC class masks (exactly one true per row) ----------------------
         is_ncs, is_swap = p == mc.NCS, p == mc.SWAP
@@ -268,6 +330,13 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
         for cond, val in table:             # the masks are disjoint
             new_pc = torch.where(cond, val, new_pc)
         _put(pc, tid, new_pc, torch.ones_like(is_ncs))
+        if R:
+            # a no-op event leaves the whole machine as it was
+            for a, b in zip(machine, before):
+                a.copy_(torch.where(step_ok[:, None], a, b))
+            ok = step_ok
+        else:
+            ok = torch.ones_like(is_ncs)
 
         # -- cost opcode + the node whose RNIC serves it --------------------
         lnode = _gat(ln, tg)
@@ -324,7 +393,7 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
         # -- cost application -----------------------------------------------
         # svc/wire scale by the target card's node, dt_plain by the caller's
         is_loop = code == OP_LOOP
-        is_rdma = (code == OP_RDMA) | is_loop
+        is_rdma = ((code == OP_RDMA) | is_loop) & ok
         nm_t, nm_my = _gat(nm_row, tnode), _gat(nm_row, mynode)
         svc = _scale_cost(torch.where(is_loop, cst[:, 5], cst[:, 4]), nm_t)
         wire = _scale_cost(torch.where(is_loop, cst[:, 7], cst[:, 6]), nm_t)
@@ -343,14 +412,24 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
         fin_m = is_rc | is_ps | is_slr
         if is_rw:
             fin_m = fin_m | is_rdr
-        finished = fin_m & (new_pc == mc.NCS)
+        finished = fin_m & (new_pc == mc.NCS) & ok
         lat_val = now - _gat(opst, tid)
         _put(lat, latn % lat_samples, lat_val, finished)
         latn = latn + finished.to(i32)
         done[rows, tid] += finished.to(i32)
-        _put(ready, tid, new_ready, torch.ones_like(is_ncs))
-        _put(opst, tid, new_ready, is_ncs)
-        reacq = reacq + (is_sb & (new_pc == mc.SET_VICTIM_R)).to(i32)
-        npass = npass + is_ps.to(i32)
+        _put(ready, tid, new_ready, ok)
+        _put(opst, tid, new_ready, is_ncs & ok)
+        reacq = reacq + (is_sb & (new_pc == mc.SET_VICTIM_R) & ok).to(i32)
+        npass = npass + (is_ps & ok).to(i32)
+        if R:
+            # -- departure: the finishing release frees the thread and
+            # stamps the request's sojourn at the step's completion time
+            req = _gat(curreq, tid)
+            comp = finished & (req >= 0)
+            rq = req.clamp(min=0)
+            _put(soj, rq, new_ready - _gat(arr, rq), comp)
+            _put(rstat, rq, COMPLETED, comp)
+            _put(curreq, tid, -1, comp)
 
-    return done, lat, latn, ready.max(1).values, reacq, npass
+    out = (done, lat, latn, ready.max(1).values, reacq, npass)
+    return out + (arr, wq, soj, rstat) if R else out

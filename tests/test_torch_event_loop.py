@@ -171,7 +171,12 @@ def test_zero_events_is_the_empty_run():
 
 
 def test_open_loop_raises_not_implemented():
+    """The open loop is ported (this test once asserted that it raised):
+    an open-loop bucket returns the ten outputs, the last four ``(B, R)``
+    (``tests/test_torch_open_loop.py`` holds them against the
+    reference)."""
     arr = R.ref_workloads.Arrivals(rate_per_us=1.0, max_requests=8)
-    wl = R.ref_lowered_batched([_base("alock", arrivals=arr)], EV)
-    with pytest.raises(NotImplementedError, match="open loop"):
-        _port("alock", wl, EV)
+    wl = R.ref_lowered_batched([_base("alock", arrivals=arr)], 200)
+    out = _port("alock", wl, 200)
+    assert len(out) == 10
+    assert [tuple(o.shape) for o in out[6:]] == [(1, 8)] * 4

@@ -46,7 +46,8 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import sys\n"
         "import repro_torch, repro_torch.core.sim, repro_torch.core.batch\n"
         "import repro_torch.experiments, repro_torch.workloads\n"
-        "import repro_torch.kernels.event_loop.ops\n"
+        "import repro_torch.kernels.event_loop.ops, repro_torch.traffic\n"
+        "import repro_torch.experiments.registry\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -60,7 +61,9 @@ def test_import_leaves_jax_and_reference_unloaded():
 
 DOCTEST_MODULES = [
     "repro_torch.core.batch", "repro_torch.core.cost_model",
-    "repro_torch.experiments", "repro_torch.kernels.event_loop.ops",
+    "repro_torch.experiments", "repro_torch.experiments.registry",
+    "repro_torch.experiments.slo", "repro_torch.kernels.event_loop.ops",
+    "repro_torch.traffic.metrics", "repro_torch.traffic.stream",
     "repro_torch.workloads", "repro_torch.workloads.lower",
     "repro_torch.workloads.spec",
 ]
@@ -135,7 +138,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_smem_budget_raises_actionably():
-    from repro_torch.kernels.event_loop.kernel import smem_bytes
+    from repro_torch.kernels.event_loop.kernel import smem_bytes, smem_table
     # the paper's largest shape fits with room to spare
     assert smem_bytes("alock", 160, 20, 1000, 1) < 20 * 1024
     assert smem_bytes("mcs", 160, 20, 1000, 1) \
@@ -144,6 +147,16 @@ def test_smem_budget_raises_actionably():
     with pytest.raises(ValueError, match="tail0/word") as ei:
         smem_bytes("alock", 160, 20, 40_000, 1)
     assert "n_locks" in str(ei.value)
+    # open loop: the request rows are priced (8 B arrival time + four
+    # 4 B rows per slot, one bound request per thread), and the
+    # registry's topology at R = 256 fits
+    closed = smem_bytes("alock", 16, 4, 16, 3)
+    assert smem_bytes("alock", 16, 4, 16, 3, 256) \
+        == closed + 256 * (8 + 4 * 4) + 4 * 16
+    assert smem_table("mcs", 16, 4, 16, 3, 256)["arrival"] == 8 * 256
+    assert smem_bytes("alock", 16, 4, 16, 3, 256) < 10 * 1024
+    with pytest.raises(ValueError, match="max_requests"):
+        smem_bytes("alock", 16, 4, 16, 3, 10_000)
 
 
 @pytest.mark.parametrize("kw", [{"devices": 2}, {"chunk": 8}])
@@ -154,12 +167,21 @@ def test_sharded_dispatch_raises_not_implemented(kw):
 
 
 def test_open_loop_raises_not_implemented():
+    """The open loop is ported: ``simulate`` and ``sweep`` run an
+    open-loop spec on the CPU and return the per-request arrays (this
+    test once asserted the opposite)."""
+    import numpy as np
     from repro_torch.core.batch import sweep
     from repro_torch.core.sim import simulate
     from repro_torch.workloads import Arrivals
     w = _workload().replace(arrivals=Arrivals(rate_per_us=1.0,
                                               max_requests=8))
-    with pytest.raises(NotImplementedError, match="open loop"):
-        simulate(w, n_events=50, device="cpu")
-    with pytest.raises(NotImplementedError, match="open loop"):
-        sweep([w], n_events=50, device="cpu")
+    one = simulate(w, n_events=200, device="cpu")
+    br = sweep([w], n_events=200, device="cpu")[0]
+    for arrs in ((one.arr_ns, one.wait_ns, one.sojourn_ns, one.rstat),
+                 (br.arr_ns[0], br.wait_ns[0], br.sojourn_ns[0],
+                  br.rstat[0])):
+        assert [a.shape for a in arrs] == [(8,)] * 4
+        assert [a.dtype for a in arrs] == [np.int64] * 3 + [np.int32]
+    assert br.open_loop and br.serving(0)["arrived"] > 0
+    np.testing.assert_array_equal(one.rstat, br.rstat[0])
