@@ -6,11 +6,12 @@ repository's ``src/`` beside this file; needs no network and no JAX.
 Without a CUDA device it exits non-zero and prints no result — it never
 runs on the CPU.
 
-It builds the event-loop kernel from ``src/repro_torch/csrc``, then prints
-one JSON object per phase:
+It builds the four kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+per source, all started together), then prints one JSON object per phase:
 
-  device      card name and power limit (``nvidia-smi``), torch/CUDA versions
-  build       seconds ``nvcc`` took
+  device      card name and power limit (``nvidia-smi``), torch/CUDA versions,
+              and that TF32 is off for the plain versions' f32 matmuls
+  build       seconds, and ``nvcc`` seconds per library
   prng        the draw stream on the card equals the one made on the CPU
   traffic_plan  the open loop's arrival plan (gaps, token-admit mask, its
               prefix count, queue bounds, arrival times) made on the card
@@ -41,12 +42,29 @@ one JSON object per phase:
               at 32 seeds x 150,000 events with the default device and
               backend, counters set to 0 just before each and read just
               after: launches, seconds by stage, events/s, knee rows
-  library_baselines  one PyTorch call per off-path TPU kernel that has one
-              (``scaled_dot_product_attention`` forward and backward at the
-              reference tests' attention shapes), timed as a yardstick, and
-              the bound of every off-path kernel at its test shape
-  kernels     the per-kernel record: launches on each main path, largest
-              deviation from the plain version, times and the roofline bound
+  kernel_check_attention  K3 (forward), K4 (dq) and K5 (dk, dv) against
+              their plain versions on the card, f32 and bf16, every mask
+              case (causal or not, with or without a window), at the test
+              shapes (K3: B=2, H=2, S=256, hd=128; K4/K5: B=2, H=2, S=64,
+              hd=16) and the path shape (B=2, H=16, S=2048, hd=128), plus
+              ragged tiles; tolerances in ``ATT_TOL``
+  kernel_check_ssd  K6 against its plain version, and ``ssd_forward``
+              against the exact recurrence ``ssd_sequential``, at the
+              reference tests' shapes and the path shape (B=2, S=2048, H=16,
+              P=64, N=128, chunk 128), 2e-4
+  float_timings  K3-K6, their plain versions and
+              ``scaled_dot_product_attention`` forward and backward (the
+              yardstick; nothing in the port calls it), CUDA events over 3
+              calls after a warm-up, with each kernel's bound, at the test
+              and path shapes (attention also in bf16)
+  exemplar_path  ``mha_vjp`` forward and ``.backward()`` and ``ssd_forward``
+              at the path shape with the default device and backend, launch
+              counters set to 0 just before and read just after (K3, K4,
+              K5 and K6 once each), outputs held against a plain run
+  library_baselines  the bound of K2, the one kernel still to be ported
+  kernels     the per-kernel record (K1 closed and open, K3-K6): launches
+              on each main path, largest deviation from the plain version,
+              times, the roofline bound and the library call's time
 
 and, last, the card's ``nvidia-smi`` line and ``{"ok": true, "device":
 {...}}``. Any phase that fails raises, and the run exits non-zero.
@@ -75,9 +93,29 @@ OPEN_SCENARIOS = ("open-loop-ramp", "burst-storm")
 OPEN_EV_CHECK = 1500
 PLAN_SEEDS = (0, 1, 7, 2**31 - 1)
 
+# the float kernels' shapes. Test shape: the largest the reference's own
+# tests give each kernel (tests/test_sim_and_kernels.py); path shape: the
+# width the kernels' sources were written for (flash_attention/kernel.py:
+# 5-7, hd = 128 with 256-wide tiles; ssd_scan/kernel.py:9-10, L = 128,
+# P = 64, N = 128). `window` is the shape's sliding-window mask case.
+ATT_FWD_TEST = dict(B=2, H=2, S=256, hd=128, window=32)    # K3
+ATT_BWD_TEST = dict(B=2, H=2, S=64, hd=16, window=16)      # K4, K5
+ATT_PATH = dict(B=2, H=16, S=2048, hd=128, window=256)
+SSD_TEST = dict(B=2, S=128, H=2, P=32, N=16, L=32)
+SSD_PATH = dict(B=2, S=2048, H=16, P=64, N=128, L=128)
+#: tolerance of kernel vs plain version on the card. f32 at the test
+#: shapes is the reference tests' 2e-5; at the path shape each output sums
+#: over up to 2,048 keys (and dk, dv over 2,048 queries) in another order
+#: than the plain version's matmuls, so 1e-4; bf16 outputs 2e-2; SSD 2e-4.
+ATT_TOL = {"test": 2e-5, "path": 1e-4, "bf16": 2e-2}
+SSD_TOL = 2e-4
+
 # published peaks of one H100 SXM (dense, full power limit)
 HBM_BYTES_PER_S = 3.35e12
 ALU32_OPS_PER_S = 67e12        # 32-bit rate outside the tensor cores
+BF16_OPS_PER_S = 989e12        # bf16 products on the tensor cores
+#: the float kernels' libraries, built beside the event loop's
+FLOAT_LIBRARIES = ("flash_attention", "flash_attention_bwd", "ssd_scan")
 #: scalar 32/64-bit operations of one event step besides the argmin,
 #: counted from the kernel source: phase resolve and draw hand-off ~14,
 #: the longest switch arm ~20, cost application ~20, accounting ~10
@@ -131,92 +169,397 @@ def k1_bound(wl, streams, T, K, n_events, lat_samples=1 << 15):
     return bytes_ms, ops_ms
 
 
-def offpath_bounds():
-    """Bound (ms) of each off-path TPU kernel at the largest shape the
-    reference's own tests give it (``tests/test_sim_and_kernels.py``):
-    bytes = every input read once and every output written once, over the
-    HBM rate; operations over the card's rate for their type (i32 and f32
-    both 67 T/s outside the tensor cores; the f32 products run there at
-    PyTorch's default full-f32 precision)."""
-    def row(nbytes, nops, shape):
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        o_ms = nops / ALU32_OPS_PER_S * 1e3
-        return {"shape": shape, "bytes": nbytes, "operations": nops,
-                "bound_ms": max(b_ms, o_ms),
-                "bound_by": "bytes" if b_ms >= o_ms else "operations"}
-    # K2 alock_tick: Tab tables, T threads, `steps` scheduled steps, all
-    # i32; ~40 scalar operations per (table, step) counted from
-    # _tick_kernel's gathers, compares and selects
+def bound_row(nbytes, nops, ops_per_s):
+    """Least time for the work: bytes (each input read once, each output
+    written once) over the HBM rate, operations over ``ops_per_s``."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = nops / ops_per_s * 1e3
+    return {"bytes": nbytes, "operations": nops, "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "bound_bytes_ms": b_ms, "bound_operations_ms": o_ms}
+
+
+def visible_pairs(S, causal, window):
+    """(query, key) pairs the mask keeps: the products the data needs."""
+    import numpy as np
+    q, k = np.arange(S)[:, None], np.arange(S)[None, :]
+    ok = np.ones((S, S), bool)
+    if causal:
+        ok &= k <= q
+    if window is not None:
+        ok &= k > q - window
+    return int(ok.sum())
+
+
+def attention_bound(kernel, B, H, S, hd, causal=True, window=None, elem=4):
+    """K3 (q, k, v in; o, lse out; q k^T and p v), K4 (q, k, v, do, lse,
+    drow in; dq out; s, dp, ds k) or K5 (the same in; dk, dv out; s, dp,
+    p^T do, ds^T q): a multiply-add is 2 operations, counted over the
+    visible pairs only. ``elem`` is the inputs' bytes per element; bf16
+    products are bounded at the tensor cores' rate, f32 at the 32-bit
+    rate outside them."""
+    n, rows = B * H * S * hd, B * H * S
+    pairs = B * H * visible_pairs(S, causal, window)
+    nbytes, per_pair = {
+        "K3": (4 * n * elem + 4 * rows, 4 * hd),
+        "K4": (5 * n * elem + 8 * rows, 6 * hd),
+        "K5": (6 * n * elem + 8 * rows, 8 * hd)}[kernel]
+    rate = BF16_OPS_PER_S if elem == 2 else ALU32_OPS_PER_S
+    row = bound_row(nbytes, pairs * per_pair, rate)
+    row["shape"] = dict(B=B, H=H, S=S, hd=hd, causal=causal, window=window,
+                        dtype="bfloat16" if elem == 2 else "float32")
+    return row
+
+
+def ssd_bound(B, S, H, P, N, L):
+    """K6, f32: xd, dA, b, c in; y_diag, states, chunk_decay out. Per
+    (batch, chunk): c b^T over the lower triangle (shared by the heads);
+    per head the masked decay (an exp and a product per kept pair), W xd
+    over the triangle, the state weights and the state product."""
+    nc, tri = S // L, L * (L + 1) // 2
+    nbytes = 4 * (2 * B * S * H * P + B * S * H + 2 * B * S * N
+                  + B * nc * H * P * N + B * nc * H)
+    nops = B * nc * (2 * tri * N + H * (2 * tri + 2 * tri * P
+                                        + 2 * L * P * N + L * P))
+    row = bound_row(nbytes, nops, ALU32_OPS_PER_S)
+    row["shape"] = dict(B=B, S=S, H=H, P=P, N=N, chunk=L)
+    return row
+
+
+def k2_bound():
+    """K2 alock_tick at the reference tests' shape: Tab tables, T threads,
+    `steps` scheduled steps, all i32; ~40 scalar operations per (table,
+    step) counted from _tick_kernel's gathers, compares and selects."""
     Tab, T, steps = 8, 4, 300
     state = 2 + 1 + 4 * T                     # tails, victim, pc/bud/nxt/prev
-    k2 = row(4 * (Tab * steps + Tab * T + 2 * Tab * state),
-             Tab * steps * 40, dict(tables=Tab, T=T, steps=steps))
-    # K3 flash forward, causal: q, k, v in, o and lse out; QK^T and PV over
-    # the causal half
-    B, H, S, hd = 2, 2, 256, 128
-    k3 = row(4 * (4 * B * H * S * hd + B * H * S),
-             2 * B * H * S * S * hd, dict(B=B, H=H, S=S, hd=hd, f32=True,
-                                          causal=True))
-    # K4 dq / K5 dk,dv, causal: q, k, v, do, lse, delta in; 3 (dq) or 4
-    # (dk, dv) products over the causal half
-    B, H, S, hd = 2, 2, 64, 16
-    bwd_in = 4 * (4 * B * H * S * hd + 2 * B * H * S)
-    shp = dict(B=B, H=H, S=S, hd=hd, f32=True, causal=True)
-    k4 = row(bwd_in + 4 * B * H * S * hd, 3 * B * H * S * S * hd, shp)
-    k5 = row(bwd_in + 8 * B * H * S * hd, 4 * B * H * S * S * hd, shp)
-    # K6 ssd intra-chunk: xd, dA, b, c in; y_diag, states, chunk_decay out;
-    # C B^T, the masked decay, W X and the chunk state per (batch, chunk)
-    B, S, H, P, N, L = 2, 128, 2, 32, 16, 32
-    nc = S // L
-    k6 = row(4 * (B * nc * L * H * P + B * nc * L * H + 2 * B * nc * L * N
-                  + B * nc * L * H * P + B * nc * H * P * N + B * nc * H),
-             B * nc * (2 * L * L * N + H * (3 * L * L + 2 * L * L * P
-                                            + 2 * L * P * N + L * P)),
-             dict(B=B, S=S, H=H, P=P, N=N, chunk=L))
-    return {"K2": k2, "K3": k3, "K4": k4, "K5": k5, "K6": k6}
+    row = bound_row(4 * (Tab * steps + Tab * T + 2 * Tab * state),
+                    Tab * steps * 40, ALU32_OPS_PER_S)
+    row["shape"] = dict(tables=Tab, T=T, steps=steps)
+    return row
 
 
-def library_baselines(torch, dev, reps=20):
-    """``scaled_dot_product_attention`` forward at K3's test shape and its
-    backward (dq, dk and dv in one call) at K4/K5's, timed with CUDA events
-    over ``reps`` calls after a warm-up; a yardstick only — nothing in the
-    port calls it. K2 and K6 have no PyTorch call of the same function."""
+def cuda_ms(torch, fn, reps=3):
+    """CUDA-event time of ``fn`` per call: one warm-up call, then ``reps``
+    calls between two events, synchronised."""
+    fn()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def sdpa_fwd_ms(torch, q, k, v):
+    """``scaled_dot_product_attention`` forward, causal, on the same inputs:
+    a yardstick only — nothing in the port calls it."""
     F = torch.nn.functional
-    g = torch.Generator(device=dev).manual_seed(0)
-
-    def timed(fn):
-        for _ in range(3):
-            fn()
-        start, stop = (torch.cuda.Event(enable_timing=True)
-                       for _ in range(2))
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / reps
-
-    q, k, v = (torch.randn((2, 2, 256, 128), device=dev, generator=g)
-               for _ in range(3))
-    fwd_ms = timed(lambda: F.scaled_dot_product_attention(
+    return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True))
-    q, k, v = (torch.randn((2, 2, 64, 16), device=dev, generator=g,
-                           requires_grad=True) for _ in range(3))
-    o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-    do = torch.randn_like(o)
-    bwd_ms = timed(lambda: torch.autograd.grad(o, (q, k, v), do,
-                                               retain_graph=True))
-    bounds = offpath_bounds()
-    lib_ms = {"K2": None, "K3": fwd_ms, "K4": bwd_ms, "K5": bwd_ms,
-              "K6": None}
-    return {"phase": "library_baselines",
-            "library_call": {
-                "K3": "F.scaled_dot_product_attention(q, k, v, "
-                      "is_causal=True), f32",
-                "K4/K5": "torch.autograd.grad of it (dq, dk, dv in one "
-                         "call), f32"},
-            "kernels": {n: dict(b, library_ms=lib_ms[n])
-                        for n, b in bounds.items()}}
+
+
+def sdpa_bwd_ms(torch, q, k, v, do):
+    """Its backward: dq, dk and dv in one ``torch.autograd.grad`` call."""
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg,
+                                                         is_causal=True)
+    return cuda_ms(torch, lambda: torch.autograd.grad(
+        o, (qg, kg, vg), do, retain_graph=True))
+
+
+def attention_inputs(torch, dev, B, H, S, hd, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((B, H, S, hd), device=dev, generator=g).to(dtype)
+            for _ in range(4)]
+
+
+def ssd_inputs(torch, dev, B, S, H, P, N, seed):
+    """xh, dt, a, b, c as the reference tests make them (softplus dt,
+    negative a), from a seeded generator on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, device=dev, generator=g)
+    xh = rn(B, S, H, P)
+    dt = torch.nn.functional.softplus(rn(B, S, H))
+    a = -torch.exp(rn(H) * 0.3)
+    return xh, dt, a, rn(B, S, N) * 0.5, rn(B, S, N) * 0.5
+
+
+def deviation(torch, got, want, tol):
+    """(largest |got - want| in f32, whether every element is within
+    ``tol`` absolute plus ``tol`` relative)."""
+    err, ok = 0.0, True
+    for a, b in zip(got, want):
+        a, b = a.detach().float(), b.detach().float()
+        err = max(err, float((a - b).abs().max()))
+        ok = ok and bool(torch.isfinite(a).all()) and bool(
+            torch.allclose(a, b, atol=tol, rtol=tol))
+    return err, ok
+
+
+def float_kernel_phases(torch, dev):
+    """kernel_check_attention, kernel_check_ssd, float_timings and
+    exemplar_path; returns the K3-K6 records of the ``kernels`` line.
+    Raises on any disagreement."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import kernel_bwd as fkb
+    from repro_torch.kernels.flash_attention.ops import mha_vjp
+    from repro_torch.kernels.flash_attention.ref import (flash_bwd_plain,
+                                                         flash_fwd_plain)
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ops import ssd_forward
+    from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_ref,
+                                                  ssd_sequential)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    # -- kernel_check_attention: K3, K4, K5 vs their plain versions --------
+    lib_f, lib_b = fk.load(), fkb.load()
+    smem_rows = []
+    for hd in (16, 64, 80, 128, 256):
+        c = (lib_f.flash_fwd_smem_bytes(hd), lib_b.flash_dq_smem_bytes(hd),
+             lib_b.flash_dkv_smem_bytes(hd))
+        py = (fk.smem_bytes(hd), *fkb.smem_bytes(hd).values())
+        smem_rows.append({"hd": hd, "smem_bytes": c, "agrees": c == py})
+    cases, errs = [], {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+
+    def fwd_case(name, shp, dtype, tol, causal, window, seed):
+        q, k, v, _ = attention_inputs(torch, dev, shp["B"], shp["H"],
+                                      shp["S"], shp["hd"], dtype, seed)
+        got = fk.flash_fwd_kernel(q, k, v, causal=causal, window=window)
+        want = flash_fwd_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err, ok = deviation(torch, got, want, tol)
+        ok = ok and got[0].dtype == dtype and got[1].dtype == f32
+        errs["K3"] = max(errs["K3"], err)
+        cases.append({"kernel": "K3", "case": name, "dtype": str(dtype),
+                      "causal": causal, "window": window, "tolerance": tol,
+                      "max_abs_err": err, "ok": ok})
+
+    def bwd_case(name, shp, dtype, tol, causal, window, seed):
+        q, k, v, do = attention_inputs(torch, dev, shp["B"], shp["H"],
+                                       shp["S"], shp["hd"], dtype, seed)
+        o, lse = flash_fwd_plain(q, k, v, causal=causal, window=window)
+        drow = (do.float() * o.float()).sum(-1)
+        dq = fkb.flash_dq_kernel(q, k, v, do, lse, drow, causal=causal,
+                                 window=window)
+        dk, dv = fkb.flash_dkv_kernel(q, k, v, do, lse, drow, causal=causal,
+                                      window=window)
+        want = flash_bwd_plain(q, k, v, do, lse, drow, causal=causal,
+                               window=window)
+        torch.cuda.synchronize()
+        for kern, got, w in (("K4", (dq,), want[:1]),
+                             ("K5", (dk, dv), want[1:])):
+            err, ok = deviation(torch, got, w, tol)
+            errs[kern] = max(errs[kern], err)
+            cases.append({"kernel": kern, "case": name, "dtype": str(dtype),
+                          "causal": causal, "window": window,
+                          "tolerance": tol, "max_abs_err": err, "ok": ok})
+
+    seed = 100
+    for name, shp, tol in (("test", ATT_FWD_TEST, ATT_TOL["test"]),
+                           ("path", ATT_PATH, ATT_TOL["path"])):
+        for causal, window in ((True, None), (False, None),
+                               (True, shp["window"]), (False, shp["window"])):
+            for dtype, t in ((f32, tol), (bf16, ATT_TOL["bf16"])):
+                seed += 1
+                fwd_case(name, shp, dtype, t, causal, window, seed)
+    for name, shp, tol in (("test", ATT_BWD_TEST, ATT_TOL["test"]),
+                           ("path", ATT_PATH, ATT_TOL["path"])):
+        for causal, window in ((True, None), (False, None),
+                               (True, shp["window"]), (False, shp["window"])):
+            for dtype, t in ((f32, tol), (bf16, ATT_TOL["bf16"])):
+                seed += 1
+                bwd_case(name, shp, dtype, t, causal, window, seed)
+    # ragged tiles (S not a multiple of 64, hd not of 16) and the 32-row
+    # tiles of hd > 128
+    for shp in (dict(B=1, H=2, S=96, hd=80), dict(B=1, H=2, S=128, hd=256)):
+        for causal, window in ((True, None), (False, 40)):
+            seed += 1
+            fwd_case("edge", shp, f32, ATT_TOL["test"], causal, window, seed)
+            bwd_case("edge", shp, f32, ATT_TOL["test"], causal, window, seed)
+    # control: K4 and K5 often agree with their plain versions bit for bit
+    # (the same sequential FMA chains); the comparison must still see a
+    # change of one element of k by 1e-3
+    q, k, v, do = attention_inputs(torch, dev, 1, 1, 64, 16, f32, 99)
+    o, lse = flash_fwd_plain(q, k, v)
+    drow = (do.float() * o.float()).sum(-1)
+    k2 = k.clone()
+    k2[0, 0, 3, 5] += 1e-3
+    control = deviation(
+        torch, (fkb.flash_dq_kernel(q, k, v, do, lse, drow),
+                *fkb.flash_dkv_kernel(q, k, v, do, lse, drow)),
+        flash_bwd_plain(q, k2, v, do, lse, drow), 0.0)[0]
+    att_ok = (all(c["ok"] for c in cases) and control > 0
+              and all(r["agrees"] for r in smem_rows))
+    emit({"phase": "kernel_check_attention", "tolerance": ATT_TOL,
+          "all_ok": att_ok, "max_abs_err": errs,
+          "control_max_abs_err": control, "smem": smem_rows,
+          "cases": cases})
+    if not att_ok:
+        raise SystemExit("kernel_check_attention: a CUDA kernel and its "
+                         "plain version disagree")
+
+    # -- kernel_check_ssd: K6 vs its plain version, ssd_forward vs the
+    # exact recurrence ------------------------------------------------------
+    def chunked(xh, dt, a, b, c, L):
+        B, S, H, P = xh.shape
+        N, nc = b.shape[-1], S // L
+        return ((xh * dt[..., None]).reshape(B, nc, L, H, P),
+                (dt * a).reshape(B, nc, L, H), b.reshape(B, nc, L, N),
+                c.reshape(B, nc, L, N))
+
+    ssd_cases, err6 = [], 0.0
+    ssd_shapes = (("test", SSD_TEST), ("path", SSD_PATH),
+                  ("test", dict(B=2, S=64, H=4, P=16, N=8, L=16)),
+                  ("test", dict(B=2, S=32, H=8, P=8, N=4, L=8)))
+    for i, (name, shp) in enumerate(ssd_shapes):
+        B, S, H, P, N, L = (shp[x] for x in "BSHPNL")
+        xs = ssd_inputs(torch, dev, B, S, H, P, N, 200 + i)
+        ops = chunked(*xs, L)
+        got = sk.ssd_kernel(*ops)
+        err, ok = deviation(torch, got, ssd_chunk_ref(*ops), SSD_TOL)
+        err6 = max(err6, err)
+        y, h = ssd_forward(*xs, chunk=L)
+        err_f, ok_f = deviation(torch, (y, h), ssd_sequential(*xs), SSD_TOL)
+        ssd_cases.append({"case": name, "shape": shp, "max_abs_err": err,
+                          "ok": ok, "forward_vs_sequential_max_abs_err":
+                          err_f, "forward_ok": ok_f,
+                          "smem_bytes": sk.smem_bytes(L, P, N),
+                          "smem_agrees": sk.load().ssd_smem_bytes(L, P, N)
+                          == sk.smem_bytes(L, P, N)})
+    # control, as for K4 and K5: one element of b changed by 1e-3
+    ops = chunked(*ssd_inputs(torch, dev, 1, 32, 2, 8, 4, 299), 8)
+    b2 = ops[2].clone()
+    b2[0, 0, 3, 1] += 1e-3
+    control = deviation(torch, sk.ssd_kernel(*ops),
+                      ssd_chunk_ref(ops[0], ops[1], b2, ops[3]), 0.0)[0]
+    ssd_ok = control > 0 and all(c["ok"] and c["forward_ok"]
+                                 and c["smem_agrees"] for c in ssd_cases)
+    emit({"phase": "kernel_check_ssd", "tolerance": SSD_TOL, "all_ok": ssd_ok,
+          "control_max_abs_err": control, "cases": ssd_cases})
+    if not ssd_ok:
+        raise SystemExit("kernel_check_ssd: K6 and its plain version, or "
+                         "ssd_forward and ssd_sequential, disagree")
+
+    # -- float_timings: kernel, plain version and library call per shape --
+    timings = {}
+    att_shapes = (("test", ATT_FWD_TEST, f32), ("path", ATT_PATH, f32),
+                  ("path_bf16", ATT_PATH, bf16))
+    for name, shp, dtype in att_shapes:
+        B, H, S, hd = (shp[x] for x in ("B", "H", "S", "hd"))
+        q, k, v, do = attention_inputs(torch, dev, B, H, S, hd, dtype, 300)
+        elem = 2 if dtype == bf16 else 4
+        timings[("K3", name)] = dict(
+            ms=cuda_ms(torch, lambda: fk.flash_fwd_kernel(q, k, v)),
+            plain_ms=cuda_ms(torch, lambda: flash_fwd_plain(q, k, v)),
+            library_ms=sdpa_fwd_ms(torch, q, k, v),
+            **attention_bound("K3", B, H, S, hd, elem=elem))
+    for name, shp, dtype in (("test", ATT_BWD_TEST, f32),
+                             ("path", ATT_PATH, f32),
+                             ("path_bf16", ATT_PATH, bf16)):
+        B, H, S, hd = (shp[x] for x in ("B", "H", "S", "hd"))
+        q, k, v, do = attention_inputs(torch, dev, B, H, S, hd, dtype, 301)
+        o, lse = flash_fwd_plain(q, k, v)
+        drow = (do.float() * o.float()).sum(-1)
+        elem = 2 if dtype == bf16 else 4
+        bwd_ms = sdpa_bwd_ms(torch, q, k, v, do)
+        plain_ms = cuda_ms(torch, lambda: flash_bwd_plain(q, k, v, do, lse,
+                                                          drow))
+        timings[("K4", name)] = dict(
+            ms=cuda_ms(torch, lambda: fkb.flash_dq_kernel(q, k, v, do, lse,
+                                                          drow)),
+            plain_ms=plain_ms, library_ms=bwd_ms,
+            **attention_bound("K4", B, H, S, hd, elem=elem))
+        timings[("K5", name)] = dict(
+            ms=cuda_ms(torch, lambda: fkb.flash_dkv_kernel(q, k, v, do, lse,
+                                                           drow)),
+            plain_ms=plain_ms, library_ms=bwd_ms,
+            **attention_bound("K5", B, H, S, hd, elem=elem))
+    for name, shp in (("test", SSD_TEST), ("path", SSD_PATH)):
+        B, S, H, P, N, L = (shp[x] for x in "BSHPNL")
+        ops = chunked(*ssd_inputs(torch, dev, B, S, H, P, N, 302), L)
+        timings[("K6", name)] = dict(
+            ms=cuda_ms(torch, lambda: sk.ssd_kernel(*ops)),
+            plain_ms=cuda_ms(torch, lambda: ssd_chunk_ref(*ops)),
+            library_ms=None, **ssd_bound(B, S, H, P, N, L))
+    emit({"phase": "float_timings", "reps": 3,
+          "note": "CUDA events over 3 calls after a warm-up; causal, no "
+                  "window; library_ms: scaled_dot_product_attention "
+                  "forward (K3) and its backward, dq, dk and dv in one "
+                  "call (K4, K5); plain_ms of K4 and K5: one "
+                  "flash_bwd_plain call (dq, dk and dv)",
+          "rows": [dict(kernel=kern, at=name, **row)
+                   for (kern, name), row in timings.items()]})
+
+    # -- exemplar_path: the slice's entry points at the path shape --------
+    B, H, S, hd = (ATT_PATH[x] for x in ("B", "H", "S", "hd"))
+    q, k, v, do = attention_inputs(torch, dev, B, H, S, hd, f32, 400)
+    xs = ssd_inputs(torch, dev, *(SSD_PATH[x] for x in "BSHPN"), 401)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    torch.cuda.synchronize()
+    fk.reset_launches()                      # every launch count to 0
+    fkb.reset_launches()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    o = mha_vjp(qg, kg, vg, causal=True)
+    o.backward(do)
+    y, h = ssd_forward(*xs, chunk=SSD_PATH["L"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    path_launches = {"K3": fk.launches(), "K4": fkb.launches()["dq"],
+                     "K5": fkb.launches()["dkv"], "K6": sk.launches()}
+    # the same inputs through the plain versions
+    qp, kp, vp = (t.clone().requires_grad_() for t in (q, k, v))
+    op = mha_vjp(qp, kp, vp, causal=True, backend="plain")
+    op.backward(do)
+    yp, hp = ssd_forward(*xs, chunk=SSD_PATH["L"], backend="plain")
+    err_att, ok_att = deviation(
+        torch, (o, qg.grad, kg.grad, vg.grad),
+        (op, qp.grad, kp.grad, vp.grad), ATT_TOL["path"])
+    err_ssd, ok_ssd = deviation(torch, (y, h), (yp, hp), SSD_TOL)
+    problems = [f"{n} launched {c} times, not once"
+                for n, c in path_launches.items() if c != 1]
+    if not ok_att:
+        problems.append(f"mha_vjp differs from its plain run ({err_att})")
+    if not ok_ssd:
+        problems.append(f"ssd_forward differs from its plain run "
+                        f"({err_ssd})")
+    if tuple(y.shape) != (SSD_PATH["B"], SSD_PATH["S"], SSD_PATH["H"],
+                          SSD_PATH["P"]) or tuple(o.shape) != (B, H, S, hd):
+        problems.append("wrong output shapes")
+    emit({"phase": "exemplar_path", "attention": ATT_PATH, "ssd": SSD_PATH,
+          "launches": path_launches, "wall_seconds": wall,
+          "mha_vjp_vs_plain_max_abs_err": err_att,
+          "ssd_forward_vs_plain_max_abs_err": err_ssd,
+          "problems": problems})
+    if problems:
+        raise SystemExit("exemplar_path: " + "; ".join(problems))
+
+    sources = {
+        "K3": ("flash_attention", "flash_attention.cu",
+               "src/repro/kernels/flash_attention/kernel.py:25"),
+        "K4": ("flash_attention_dq", "flash_attention_bwd.cu",
+               "src/repro/kernels/flash_attention/kernel_bwd.py:35"),
+        "K5": ("flash_attention_dkv", "flash_attention_bwd.cu",
+               "src/repro/kernels/flash_attention/kernel_bwd.py:62"),
+        "K6": ("ssd_intra_chunk", "ssd_scan.cu",
+               "src/repro/kernels/ssd_scan/kernel.py:21")}
+    errs["K6"] = err6
+    records = []
+    for kern, (name, src, replaces) in sources.items():
+        path = timings[(kern, "path")]
+        rec = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
+               "launches": path_launches[kern], "max_abs_err": errs[kern],
+               "ms": path["ms"], "plain_ms": path["plain_ms"],
+               "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
+               "library_ms": path["library_ms"], "shape": path["shape"],
+               "at_other_shapes": {n: r for (k2, n), r in timings.items()
+                                   if k2 == kern and n != "path"}}
+        records.append(rec)
+    return records
 
 
 def main():
@@ -240,18 +583,35 @@ def main():
                                        WorkloadOperands, lower, pad_phases,
                                        racks_of, to_device)
 
+    from repro_torch.kernels import _build
+
     dev = torch.device("cuda")
+    # the plain versions' f32 matmuls in full f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     smi = nvidia_smi_line()
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "python": sys.version.split()[0]})
+          "python": sys.version.split()[0],
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "float32_matmul_precision": torch.get_float32_matmul_precision()})
 
-    # -- build ---------------------------------------------------------------
+    # -- build: every library at once, one nvcc per source -------------------
     t0 = time.perf_counter()
+    libs = _build.build_all(
+        [(el_kernel.SOURCE, "event_loop", el_kernel.NVCC_FLAGS)]
+        + [(_build.CSRC / f"{stem}.cu", stem, _build.FLAGS)
+           for stem in FLOAT_LIBRARIES])
     lib = el_kernel.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": el_kernel.build_seconds(),
-          "library": os.path.relpath(str(el_kernel.build()), HERE)})
+          "library": os.path.relpath(str(libs["event_loop"]), HERE),
+          "libraries": {stem: {"nvcc_seconds":
+                               _build.BUILD_SECONDS.get(stem),
+                               "library": os.path.relpath(str(p), HERE)}
+                        for stem, p in libs.items()}})
 
     def stacked(ws, n_events, n_seeds=1):
         """Lower workloads of one bucket, pad phases, stack (and repeat
@@ -715,8 +1075,13 @@ def main():
         if problems:
             raise SystemExit(f"main_path_open {name}: " + "; ".join(problems))
 
-    # -- library_baselines: yardsticks and bounds of the off-path kernels --
-    emit(library_baselines(torch, dev))
+    # -- the attention and SSD entry points (K3-K6) ------------------------
+    float_records = float_kernel_phases(torch, dev)
+    emit({"phase": "library_baselines",
+          "note": "bounds of the kernel still to be ported (K2, at its test "
+                  "shape); K3-K6 bounds, plain and library times are in "
+                  "float_timings",
+          "kernels": {"K2": dict(k2_bound(), library_ms=None)}})
 
     # -- the per-kernel record ----------------------------------------------
     emit({"kernels": [{
@@ -751,7 +1116,7 @@ def main():
         "bound_by": "bytes" if obytes_ms >= oops_ms else "operations",
         "bound_bytes_ms": obytes_ms, "bound_operations_ms": oops_ms,
         "library_ms": None,
-    }]})
+    }] + float_records})
     print(smi, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """Device and backend policy of the port — explicit, never a fallback.
 
-Every entry point takes ``device=`` and defaults to ``"cuda"``. Asking for
-CUDA (by default or by name) on a host without a CUDA device raises; the
-CPU is used only when the caller writes ``device="cpu"``.
+Every entry point that makes its own tensors takes ``device=`` and
+defaults to ``"cuda"``. Asking for CUDA (by default or by name) on a host
+without a CUDA device raises; the CPU is used only when the caller writes
+``device="cpu"``. The entry points that take tensors (attention, SSD) run
+where those tensors lie: CPU tensors are the caller asking for the CPU.
 """
 from __future__ import annotations
 
@@ -38,7 +40,17 @@ def resolve_backend(backend: str, device) -> str:
         return "kernel" if dev.type == "cuda" else "plain"
     if backend == "kernel" and dev.type != "cuda":
         raise ValueError(
-            "backend='kernel' is the CUDA event-loop kernel and needs a "
+            "backend='kernel' is the hand-written CUDA kernel and needs a "
             f"CUDA device, got device={str(device)!r}; use backend='plain' "
             "for the PyTorch version")
     return backend
+
+
+def device_of(**tensors) -> torch.device:
+    """The one device every tensor lies on (checked with
+    ``resolve_device``); mixed devices raise."""
+    devs = {t.device for t in tensors.values()}
+    if len(devs) != 1:
+        detail = ", ".join(f"{n} on {t.device}" for n, t in tensors.items())
+        raise ValueError(f"all inputs must lie on one device, got {detail}")
+    return resolve_device(devs.pop())

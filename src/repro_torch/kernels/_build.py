@@ -1,0 +1,137 @@
+"""Build and load the hand-written CUDA kernels (``src/repro_torch/csrc``).
+
+Each ``.cu`` source becomes its own shared library with a plain C
+interface, compiled by ``nvcc`` for ``sm_90a`` into ``build/`` at the
+repository root at first use and loaded with ``ctypes``. A library's name
+carries a hash of its source and flags, so an edit rebuilds. A failed
+build raises. Nothing here runs at import time: importing this module
+needs neither ``nvcc`` nor a CUDA device.
+
+``FLAGS`` leave out ``--use_fast_math``: ``expf``/``logf`` stay the
+accurate versions, which the float kernels' tolerances depend on.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC")
+
+#: stem -> wall seconds of the last ``nvcc`` run of this process
+BUILD_SECONDS: dict[str, float] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    # src/repro_torch/kernels/_build.py -> repository root
+    return Path(__file__).resolve().parents[3] / "build"
+
+
+def _nvcc(source: Path) -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc was not found (looked at PATH and /usr/local/cuda/bin/nvcc); "
+        f"the kernel is built from {source} at first use and cannot run "
+        "without it")
+
+
+def build(source: Path, stem: str, flags=FLAGS) -> Path:
+    """Compile ``source`` if no library for its current text, the headers
+    beside it and ``flags`` exists; return the library's path. (Add
+    ``-Xptxas -v`` to the flags to see registers, shared memory and
+    spills.)"""
+    text = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
+    out_dir = build_dir()
+    lib = out_dir / f"lib{stem}_{tag}.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{lib.name}.{os.getpid()}.{id(source)}.tmp"
+    cmd = [_nvcc(source), *flags, "-o", str(tmp), str(source)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_SECONDS[stem] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"building {source.name} failed (exit {proc.returncode}): "
+            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)        # atomic: concurrent builds agree
+    return lib
+
+
+def build_all(specs) -> dict:
+    """Build every ``(source, stem, flags)`` of ``specs`` at once, one
+    ``nvcc`` each, all started together; return stem -> library path."""
+    specs = list(specs)
+    with ThreadPoolExecutor(max_workers=max(1, len(specs))) as pool:
+        paths = list(pool.map(lambda s: build(*s), specs))
+    return {s[1]: p for s, p in zip(specs, paths)}
+
+
+def load(source: Path, stem: str, setup, flags=FLAGS) -> ctypes.CDLL:
+    """The library of ``source`` (built on first use), after ``setup(lib)``
+    has set its ``argtypes``; loaded once per process."""
+    if stem not in _LIBS:
+        lib = ctypes.CDLL(str(build(source, stem, flags)))
+        setup(lib)
+        _LIBS[stem] = lib
+    return _LIBS[stem]
+
+
+def load_float_kernel(stem: str, signatures: dict) -> ctypes.CDLL:
+    """``csrc/<stem>.cu`` loaded, with each ``name -> argtypes`` of
+    ``signatures`` set (every entry point returns an int) and the
+    library's ``kernel_error_string``."""
+    def setup(lib):
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+    return load(CSRC / f"{stem}.cu", stem, setup)
+
+
+def check_launch(lib, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error (its
+    ``cudaGetLastError()`` right after the launch): a refused launch never
+    runs, and a later synchronise would not report it."""
+    if err != 0:
+        msg = lib.kernel_error_string(err).decode()
+        raise RuntimeError(f"{what} failed to launch: CUDA error {err} "
+                           f"({msg})")
+
+
+def stream_of(t) -> int:
+    """The current CUDA stream of ``t``'s device, as an int for ctypes."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(what: str, **tensors) -> None:
+    """Raise unless every tensor lies on one CUDA device and is
+    contiguous: the kernels take nothing else."""
+    devs = {t.device for t in tensors.values()}
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(
+                f"{what} needs CUDA tensors, {name} lies on {t.device}; use "
+                f"backend='plain' for the PyTorch version")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if len(devs) != 1:
+        raise ValueError(f"{what}: all operands must lie on one CUDA device, "
+                         f"got {sorted(map(str, devs))}")

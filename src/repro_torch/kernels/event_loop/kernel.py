@@ -8,10 +8,9 @@ request rows) in shared memory, gives each replica one warp, and reads
 device memory only for the draw streams, the latency ring and the
 per-request waits and sojourns (see the header of the ``.cu`` file).
 
-Build: at the first launch the sources under ``csrc/`` are compiled by
-``nvcc`` for ``sm_90a`` into ``build/`` at the repository root, a shared
-library with a plain C interface, loaded with ``ctypes``. The library's
-name carries a hash of the sources and the flags, so an edit rebuilds. A failed build raises.
+Build: at the first launch ``csrc/event_loop.cu`` is compiled by ``nvcc``
+for ``sm_90a`` into ``build/`` at the repository root (``kernels/_build``),
+a shared library with a plain C interface, loaded with ``ctypes``.
 Nothing here runs at import time: importing this module needs neither
 ``nvcc`` nor a CUDA device.
 
@@ -22,14 +21,11 @@ launches (one per call), and nothing else increments it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
+
+from repro_torch.kernels import _build
 
 ALGS = ("alock", "mcs", "spinlock", "hlock", "alock-rw")
 
@@ -39,12 +35,8 @@ LAUNCHES = 0
 #: shared memory one block may use on Hopper (dynamic, opt-in above 48 KB)
 SMEM_LIMIT = 227 * 1024
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "event_loop.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-
-_LIB = None
-_BUILD_SECONDS = None
+SOURCE = _build.CSRC / "event_loop.cu"
+NVCC_FLAGS = _build.FLAGS
 
 
 def launches() -> int:
@@ -56,60 +48,19 @@ def reset_launches() -> None:
     LAUNCHES = 0
 
 
-def build_dir() -> Path:
-    # src/repro_torch/kernels/event_loop/kernel.py -> repository root
-    return Path(__file__).resolve().parents[4] / "build"
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc was not found (looked at PATH and "
-        "/usr/local/cuda/bin/nvcc); the event-loop kernel is built from "
-        f"{SOURCE} at first use and cannot run without it")
-
-
 def build() -> Path:
-    """Compile ``csrc/event_loop.cu`` if no library for the current
-    sources exists; return the library's path. (Add ``-Xptxas -v`` to
-    ``NVCC_FLAGS`` to see registers, shared memory and spills.)"""
-    global _BUILD_SECONDS
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = build_dir()
-    lib = out_dir / f"libevent_loop_{tag}.so"
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{lib.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    _BUILD_SECONDS = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"building the event-loop kernel failed (exit "
-            f"{proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n"
-            f"{proc.stderr}")
-    os.replace(tmp, lib)        # atomic: concurrent builds agree
-    return lib
+    """Compile ``csrc/event_loop.cu`` if no library for the current source
+    exists; return the library's path."""
+    return _build.build(SOURCE, "event_loop", NVCC_FLAGS)
 
 
 def build_seconds():
     """Wall seconds the last ``nvcc`` run of this process took (None when
     the library was already there)."""
-    return _BUILD_SECONDS
+    return _build.BUILD_SECONDS.get("event_loop")
 
 
-def load():
-    """The loaded library (built on first use), with ``argtypes`` set."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    lib = ctypes.CDLL(str(build()))
+def _setup(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.event_loop_launch.argtypes = [ci] + [vp] * 28 + [ci] * 8 + [vp]
     lib.event_loop_launch.restype = ci
@@ -117,8 +68,11 @@ def load():
     lib.event_loop_smem_bytes.restype = ci
     lib.event_loop_error_string.argtypes = [ci]
     lib.event_loop_error_string.restype = ctypes.c_char_p
-    _LIB = lib
-    return lib
+
+
+def load():
+    """The loaded library (built on first use), with ``argtypes`` set."""
+    return _build.load(SOURCE, "event_loop", _setup, NVCC_FLAGS)
 
 
 def smem_table(alg: str, T: int, N: int, K: int, P: int,

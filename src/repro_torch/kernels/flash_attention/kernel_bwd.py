@@ -1,0 +1,133 @@
+"""Flash-attention backward: the wrappers of the CUDA kernels K4 (dq) and
+K5 (dk, dv) (``csrc/flash_attention_bwd.cu``) and
+``flash_attention_bwd``.
+
+Replace the TPU kernels ``repro/kernels/flash_attention/kernel_bwd.py::
+_dq_kernel`` and ``::_dkv_kernel``. Both recompute ``p = exp(s - lse)``
+from (q, k, lse), so nothing O(S^2) reaches device memory: K4 runs one
+block per ``(b, h, q tile)`` over the kv tiles, K5 one block per ``(b, h,
+kv tile)`` over the q tiles, each with its accumulators in registers and
+without atomics (see the header of the ``.cu`` file). Built at the first
+launch; importing this module needs neither ``nvcc`` nor a CUDA device.
+
+``flash_dq_kernel`` and ``flash_dkv_kernel`` launch for CUDA tensors or
+raise. ``LAUNCHES_DQ`` and ``LAUNCHES_DKV`` count their launches (one per
+call), and nothing else increments them.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.device import device_of, resolve_backend
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.kernel import (
+    DTYPES, block_rows, check_kernel_operands, check_qkv, check_window,
+    window_arg)
+from repro_torch.kernels.flash_attention.ref import flash_bwd_plain
+
+#: launches of K4 (dq) and of K5 (dk, dv) since ``reset_launches()``
+LAUNCHES_DQ = 0
+LAUNCHES_DKV = 0
+
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "flash_dq_launch": [_vp] * 7 + [_ci] * 5 + [_cf, _ci, _vp],
+    "flash_dkv_launch": [_vp] * 8 + [_ci] * 5 + [_cf, _ci, _vp],
+    "flash_dq_smem_bytes": [_ci],
+    "flash_dkv_smem_bytes": [_ci],
+}
+
+
+def launches() -> dict:
+    return {"dq": LAUNCHES_DQ, "dkv": LAUNCHES_DKV}
+
+
+def reset_launches() -> None:
+    global LAUNCHES_DQ, LAUNCHES_DKV
+    LAUNCHES_DQ = LAUNCHES_DKV = 0
+
+
+def load():
+    return _build.load_float_kernel("flash_attention_bwd", SIGNATURES)
+
+
+def smem_bytes(hd: int) -> dict:
+    """Shared memory of one dq and one dk/dv block (mirrors the ``.cu``):
+    four (rows, hd + 1) f32 tiles, plus one (dq) or two (dk, dv)
+    (rows, rows + 1) tiles and, for dk/dv, the rows' lse and drow."""
+    r = block_rows(hd)
+    tiles = 4 * r * (hd + 1)
+    return {"dq": 4 * (tiles + r * (r + 1)),
+            "dkv": 4 * (tiles + 2 * r * (r + 1) + 2 * r)}
+
+
+def _operands(q, k, v, do, lse, drow, what):
+    B, H, S, hd = q.shape
+    check_kernel_operands(what, hd, q=q, k=k, v=v, do=do, lse=lse,
+                          drow=drow)
+    if do.shape != q.shape or lse.shape != (B, H, S) \
+            or drow.shape != (B, H, S):
+        raise ValueError(f"{what}: do must be {tuple(q.shape)} and lse, drow "
+                         f"{(B, H, S)}; got {tuple(do.shape)}, "
+                         f"{tuple(lse.shape)}, {tuple(drow.shape)}")
+    return B, H, S, hd
+
+
+def flash_dq_kernel(q, k, v, do, lse, drow, *, causal=True, window=None):
+    """Launch K4: dq (B, H, S, hd) in q's dtype. Same operands as
+    ``ref.flash_bwd_plain``, contiguous CUDA tensors."""
+    global LAUNCHES_DQ
+    what = "flash-attention dq kernel"
+    B, H, S, hd = _operands(q, k, v, do, lse, drow, what)
+    lib = load()
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.flash_dq_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), drow.data_ptr(), dq.data_ptr(), B * H, S, hd,
+            int(causal), window_arg(window), hd ** -0.5, DTYPES[q.dtype],
+            _build.stream_of(q))
+    _build.check_launch(lib, err, f"{what} (B={B}, H={H}, S={S}, hd={hd})")
+    LAUNCHES_DQ += 1
+    return dq
+
+
+def flash_dkv_kernel(q, k, v, do, lse, drow, *, causal=True, window=None):
+    """Launch K5: (dk, dv), each (B, H, S, hd) in k's and v's dtype."""
+    global LAUNCHES_DKV
+    what = "flash-attention dk/dv kernel"
+    B, H, S, hd = _operands(q, k, v, do, lse, drow, what)
+    lib = load()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = lib.flash_dkv_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), drow.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B * H, S, hd, int(causal), window_arg(window), hd ** -0.5,
+            DTYPES[q.dtype], _build.stream_of(q))
+    _build.check_launch(lib, err, f"{what} (B={B}, H={H}, S={S}, hd={hd})")
+    LAUNCHES_DKV += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, do, lse, drow, *, causal: bool = True,
+                        window=None, bq: int = 256, bk: int = 256,
+                        backend: str = "auto"):
+    """q, k, v, do: (B, H, S, hd); lse, drow: (B, H, S) f32. Returns
+    ``(dq, dk, dv)``. Runs where the inputs lie, as ``flash_attention``;
+    on CUDA tensors it launches K4 and then K5."""
+    check_qkv(q, k, v, bq, bk)
+    check_window(window)
+    dev = device_of(q=q, k=k, v=v, do=do, lse=lse, drow=drow)
+    if resolve_backend(backend, dev) == "plain":
+        return flash_bwd_plain(q, k, v, do, lse, drow, causal=causal,
+                               window=window)
+    q, k, v, do, lse, drow = (t.contiguous() for t in (q, k, v, do, lse,
+                                                        drow))
+    dq = flash_dq_kernel(q, k, v, do, lse, drow, causal=causal,
+                         window=window)
+    dk, dv = flash_dkv_kernel(q, k, v, do, lse, drow, causal=causal,
+                              window=window)
+    return dq, dk, dv

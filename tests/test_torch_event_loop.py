@@ -170,9 +170,8 @@ def test_zero_events_is_the_empty_run():
     assert bool((lat == -1).all())
 
 
-def test_open_loop_raises_not_implemented():
-    """The open loop is ported (this test once asserted that it raised):
-    an open-loop bucket returns the ten outputs, the last four ``(B, R)``
+def test_open_loop_bucket_returns_ten_outputs():
+    """An open-loop bucket returns the ten outputs, the last four ``(B, R)``
     (``tests/test_torch_open_loop.py`` holds them against the
     reference)."""
     arr = R.ref_workloads.Arrivals(rate_per_us=1.0, max_requests=8)

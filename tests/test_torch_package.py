@@ -31,7 +31,13 @@ def test_package_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "chip_smoke.py" in names
     assert "src/repro_torch/kernels/event_loop/kernel.py" in names
-    assert (PKG / "csrc" / "event_loop.cu").exists()
+    for mod in ("_build", "flash_attention/kernel", "flash_attention/"
+                "kernel_bwd", "flash_attention/ops", "flash_attention/ref",
+                "ssd_scan/kernel", "ssd_scan/ops", "ssd_scan/ref"):
+        assert f"src/repro_torch/kernels/{mod}.py" in names
+    for src in ("event_loop.cu", "flash_attention.cu",
+                "flash_attention_bwd.cu", "ssd_scan.cu", "flash_common.cuh"):
+        assert (PKG / "csrc" / src).exists()
 
 
 @pytest.mark.parametrize(
@@ -48,6 +54,8 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.experiments, repro_torch.workloads\n"
         "import repro_torch.kernels.event_loop.ops, repro_torch.traffic\n"
         "import repro_torch.experiments.registry\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.ssd_scan.ops\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

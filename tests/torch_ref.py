@@ -28,10 +28,19 @@ import repro.experiments as ref_experiments  # noqa: E402
 import repro.experiments.registry as ref_registry  # noqa: E402
 import repro.kernels.event_loop.ops as ref_ops  # noqa: E402
 import repro.kernels.event_loop.ref as ref_ref  # noqa: E402
+import repro.kernels.flash_attention.kernel as ref_flash_kernel  # noqa: E402
+import repro.kernels.flash_attention.kernel_bwd as ref_flash_kernel_bwd  # noqa: E402,E501
+import repro.kernels.flash_attention.ops as ref_flash_ops  # noqa: E402
+import repro.kernels.flash_attention.ref as ref_flash_ref  # noqa: E402
+import repro.kernels.ssd_scan.kernel as ref_ssd_kernel  # noqa: E402
+import repro.kernels.ssd_scan.ops as ref_ssd_ops  # noqa: E402
+import repro.kernels.ssd_scan.ref as ref_ssd_ref  # noqa: E402
 import repro.workloads as ref_workloads  # noqa: E402
 
 __all__ = ["jax", "jnp", "np", "ref_batch", "ref_sim", "ref_experiments",
            "ref_registry", "ref_ops", "ref_ref", "ref_workloads",
+           "ref_flash_kernel", "ref_flash_kernel_bwd", "ref_flash_ops", "ref_flash_ref",
+           "ref_ssd_kernel", "ref_ssd_ops", "ref_ssd_ref",
            "ref_lowered_batched", "assert_bitwise", "to_port", "OUT_NAMES"]
 
 OUT_NAMES = ("done", "lat", "lat_n", "t_end", "nreacq", "npass")
