@@ -6,13 +6,16 @@ repository's ``src/`` beside this file; needs no network and no JAX.
 Without a CUDA device it exits non-zero and prints no result — it never
 runs on the CPU.
 
-It builds the four kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+It builds the five kernel libraries from ``src/repro_torch/csrc`` (one ``nvcc``
 per source, all started together), then prints one JSON object per phase:
 
   device      card name and power limit (``nvidia-smi``), torch/CUDA versions,
               and that TF32 is off for the plain versions' f32 matmuls
   build       seconds, and ``nvcc`` seconds per library
-  prng        the draw stream on the card equals the one made on the CPU
+  prng        the draw stream on the card equals the one made on the CPU,
+              and so does the lock-property path's shaped schedule stream
+              (``alock_tick.ops.schedule``) at three shapes x seeds {0, 1,
+              7, 2**31-1}, whole and drawn in slabs of rows
   traffic_plan  the open loop's arrival plan (gaps, token-admit mask, its
               prefix count, queue bounds, arrival times) made on the card
               equals the one made on the CPU: seeds {0, 1, 7, 2**31-1} x the
@@ -61,8 +64,24 @@ per source, all started together), then prints one JSON object per phase:
               at the path shape with the default device and backend, launch
               counters set to 0 just before and read just after (K3, K4,
               K5 and K6 once each), outputs held against a plain run
-  library_baselines  the bound of K2, the one kernel still to be ported
-  kernels     the per-kernel record (K1 closed and open, K3-K6): launches
+  kernel_check_tick  K2 (``alock_tick``) against its plain version on the
+              card, ``torch.equal`` on all six outputs: the reference
+              tests' shapes (one padded), per-table cohorts under four
+              budget pairs, mid-run state, out-of-range schedule entries,
+              T = 100 (the block shrunk to whole warps), the path shape with
+              the steps cut (both timed), the C and Python shared-memory
+              tables, and a negative control (one schedule entry changed)
+  golden_tick the path shape (4,096 tables x 16 threads x 150,000 steps)
+              at full depth: the schedule's and K2's six outputs' SHA-256,
+              ``in_cs_frac`` and the pc histogram equal
+              ``tests/golden/torch_tick_full.json`` (the JAX reference's)
+  schedule_check  ``run_schedule`` for all five algorithms on the card equals
+              the same call on the CPU, trace and final state
+  main_path_tick  ``monte_carlo_cs_entries`` at the path shape with the
+              default device and backend, K2's counter set to 0 just before
+              and read just after: launches, seconds by stage, table-steps
+              per second, peak device memory, the two statistics
+  kernels     the per-kernel record (K1 closed and open, K2, K3-K6): launches
               on each main path, largest deviation from the plain version,
               times, the roofline bound and the library call's time
 
@@ -110,12 +129,27 @@ SSD_PATH = dict(B=2, S=2048, H=16, P=64, N=128, L=128)
 ATT_TOL = {"test": 2e-5, "path": 1e-4, "bf16": 2e-2}
 SSD_TOL = 2e-4
 
+# the lock-property path: monte_carlo_cs_entries at Fig. 5's 8 threads per
+# node (8 local + 8 remote), 4,096 single-lock tables, the simulator's
+# per-replica depth of 150,000 steps, the paper's budgets (5, 20), seed 0
+TICK_PATH = dict(tables=4096, T=16, steps=150_000)
+TICK_COHORTS = (0,) * 8 + (1,) * 8
+TICK_B_INIT = (5, 20)
+#: steps of the path shape at which the plain version is timed
+TICK_STEPS_CUT = 2000
+#: scalar operations one ALock step needs, counted from the kernel's
+#: switch: read the scheduled thread and range-check it, read its cohort
+#: and pc, pick the cohort's tail, dispatch, the arm's read-compare-write,
+#: write the pc and the tail back
+TICK_STEP_OPS = 10
+
 # published peaks of one H100 SXM (dense, full power limit)
 HBM_BYTES_PER_S = 3.35e12
 ALU32_OPS_PER_S = 67e12        # 32-bit rate outside the tensor cores
 BF16_OPS_PER_S = 989e12        # bf16 products on the tensor cores
-#: the float kernels' libraries, built beside the event loop's
-FLOAT_LIBRARIES = ("flash_attention", "flash_attention_bwd", "ssd_scan")
+#: the libraries built beside the event loop's (one nvcc each, all at once)
+LIBRARIES = ("flash_attention", "flash_attention_bwd", "ssd_scan",
+             "alock_tick")
 #: scalar 32/64-bit operations of one event step besides the argmin,
 #: counted from the kernel source: phase resolve and draw hand-off ~14,
 #: the longest switch arm ~20, cost application ~20, accounting ~10
@@ -226,15 +260,16 @@ def ssd_bound(B, S, H, P, N, L):
     return row
 
 
-def k2_bound():
-    """K2 alock_tick at the reference tests' shape: Tab tables, T threads,
-    `steps` scheduled steps, all i32; ~40 scalar operations per (table,
-    step) counted from _tick_kernel's gathers, compares and selects."""
-    Tab, T, steps = 8, 4, 300
-    state = 2 + 1 + 4 * T                     # tails, victim, pc/bud/nxt/prev
-    row = bound_row(4 * (Tab * steps + Tab * T + 2 * Tab * state),
-                    Tab * steps * 40, ALU32_OPS_PER_S)
-    row["shape"] = dict(tables=Tab, T=T, steps=steps)
+def k2_bound(tables, T, steps):
+    """K2 alock_tick on ``tables`` tables of ``T`` threads over ``steps``
+    scheduled steps, all int32: the schedule, the cohorts and the state
+    (tails, victim, pc/budget/next/prev) read once, the state written
+    once; TICK_STEP_OPS scalar operations per (table, step) over the
+    32-bit rate."""
+    state = 2 + 1 + 4 * T
+    row = bound_row(4 * (tables * steps + tables * T + 2 * tables * state),
+                    tables * steps * TICK_STEP_OPS, ALU32_OPS_PER_S)
+    row["shape"] = dict(tables=tables, T=T, steps=steps)
     return row
 
 
@@ -562,6 +597,227 @@ def float_kernel_phases(torch, dev):
     return records
 
 
+def tick_phases(torch, dev, np):
+    """kernel_check_tick, golden_tick, schedule_check and main_path_tick;
+    returns K2's record of the ``kernels`` line. Raises on any
+    disagreement."""
+    from repro_torch.core import machine as mc
+    from repro_torch.core.sim import run_schedule
+    from repro_torch.kernels.alock_tick import kernel as tk
+    from repro_torch.kernels.alock_tick import ops as tops
+    from repro_torch.kernels.alock_tick.ref import alock_tick_plain
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def digest(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    def run(state, sched, coh, b_init, tile, plain=False):
+        fn = alock_tick_plain if plain else tk.tick_kernel
+        return fn(*state, sched, coh, b_init=b_init, tile=tile)
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def abs_err(a, b):
+        return max(int((x.long() - y.long()).abs().max()) for x, y in
+                   zip(a, b))
+
+    # -- kernel_check_tick: K2 vs its plain version, on the card ------------
+    lib = tk.load()
+    smem_rows = [{"T": T, "tile": tile,
+                  "smem_bytes": lib.alock_tick_smem_bytes(
+                      T, tk.tables_per_block(T, tile)),
+                  "agrees": lib.alock_tick_smem_bytes(
+                      T, tk.tables_per_block(T, tile))
+                  == tk.smem_bytes(T, tile)}
+                 for T, tile in ((3, 4), (16, 128), (100, 128), (300, 64))]
+    cases = []
+
+    def case(name, Tab, T, steps, tile, b_init, seed, per_table=False,
+             state=None, lo=0, hi=None):
+        rng = np.random.default_rng(seed)
+        sched = torch.from_numpy(rng.integers(
+            lo, T if hi is None else hi, (Tab, steps)).astype(np.int32)).to(
+            dev)
+        coh = rng.integers(0, 2, (Tab, T) if per_table else T)
+        coh = torch.from_numpy(np.broadcast_to(coh, (Tab, T)).astype(
+            np.int32).copy()).to(dev)
+        if state is None:
+            state = tops.fresh_tables(Tab, T, dev)
+        got = run(state, sched, coh, b_init, tile)
+        want = run(state, sched, coh, b_init, tile, plain=True)
+        ok = equal(got, want)
+        cases.append({"case": name, "tables": Tab, "T": T, "steps": steps,
+                      "tile": tile, "tables_per_block":
+                      tk.tables_per_block(T, min(tile, Tab)),
+                      "b_init": list(b_init), "equal": ok,
+                      "max_abs_err": abs_err(got, want),
+                      "in_cs": int((got[2] == mc.CS).sum())})
+        return got, sched, coh, ok
+
+    case("reference test shape", 8, 4, 300, 4, (2, 3), 5)
+    case("reference test shape, padded", 6, 3, 150, 4, (2, 3), 11)
+    for b in ((5, 20), (1, 1), (3, 1), (2, 7)):
+        mid, _, _, _ = case("per-table cohorts", 300, 16, 500, 128, b,
+                            sum(b), per_table=True)
+        case("per-table cohorts, mid-run state in", 300, 16, 500, 128, b,
+             sum(b) + 1, per_table=True, state=mid)
+    case("threads out of range", 64, 5, 400, 32, (2, 3), 3, lo=-2, hi=7)
+    case("T = 100, block shrunk to whole warps", 200, 100, 300, 128, (5, 20),
+         4, per_table=True)
+    # negative control: one schedule entry changed (the last step of
+    # table 0 moves another thread); the outputs must differ
+    state = tops.fresh_tables(8, 4, dev)
+    base, sched0, coh0, _ = case("control base", 8, 4, 300, 4, (2, 3), 6)
+    caught = False
+    for t in range(4):
+        bad = sched0.clone()
+        if int(bad[0, -1]) == t:
+            continue
+        bad[0, -1] = t
+        got_bad = run(state, bad, coh0, (2, 3), 4)
+        if not equal(got_bad, base):
+            caught = equal(got_bad, run(state, bad, coh0, (2, 3), 4,
+                                        plain=True))
+            break
+    # the path shape with the steps cut for the plain version, both timed
+    Tab, T = TICK_PATH["tables"], TICK_PATH["T"]
+    coh_path = torch.tensor(TICK_COHORTS, **i32).expand(Tab, T).contiguous()
+    sched_cut = tops.schedule(Tab, TICK_STEPS_CUT, T, 0, dev)
+    st_cut = tops.fresh_tables(Tab, T, dev)
+    got = run(st_cut, sched_cut, coh_path, TICK_B_INIT, 128)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = run(st_cut, sched_cut, coh_path, TICK_B_INIT, 128, plain=True)
+    torch.cuda.synchronize()
+    plain_ms_cut = (time.perf_counter() - t0) * 1e3
+    ms_cut = cuda_ms(torch, lambda: run(st_cut, sched_cut, coh_path,
+                                        TICK_B_INIT, 128))
+    cases.append({"case": "path shape, steps cut", "tables": Tab, "T": T,
+                  "steps": TICK_STEPS_CUT, "tile": 128,
+                  "equal": equal(got, want),
+                  "max_abs_err": abs_err(got, want), "ms": ms_cut,
+                  "plain_ms": plain_ms_cut})
+    max_err = max(c["max_abs_err"] for c in cases)
+    del sched_cut, st_cut, got, want
+    all_equal = all(c["equal"] for c in cases) and all(
+        r["agrees"] for r in smem_rows)
+    emit({"phase": "kernel_check_tick", "tolerance": 0, "outputs": 6,
+          "all_equal": all_equal, "negative_control_caught": caught,
+          "smem_tables": smem_rows, "cases": cases})
+    if not (all_equal and caught):
+        raise SystemExit("kernel_check_tick: the CUDA kernel and its plain "
+                         "version disagree, or the control was not caught")
+
+    # -- golden_tick: the path shape at full depth against the reference ---
+    with open(os.path.join(HERE, "tests", "golden",
+                           "torch_tick_full.json")) as f:
+        golden = json.load(f)
+    shape = (golden["n_tables"], golden["n_threads"], golden["steps"])
+    if shape != (Tab, T, TICK_PATH["steps"]):
+        raise SystemExit(f"golden_tick: the golden file is for {shape}")
+    t0 = time.perf_counter()
+    sched = tops.schedule(Tab, golden["steps"], T, golden["seed"], dev)
+    torch.cuda.synchronize()
+    sched_s = time.perf_counter() - t0
+    h = hashlib.sha256()
+    for r0 in range(0, Tab, 256):
+        h.update(sched[r0:r0 + 256].cpu().numpy().tobytes())
+    coh_g = torch.tensor(golden["cohorts"], **i32).expand(Tab, T).contiguous()
+    st = tops.fresh_tables(Tab, T, dev)
+    b_g = tuple(golden["b_init"])
+    out = run(st, sched, coh_g, b_g, 128)
+    names = ("tails", "victim", "pc", "budget", "nxt", "prev")
+    got_d = {n: digest(o.cpu().numpy()) for n, o in zip(names, out)}
+    frac = tops.in_cs_fraction(out[2])
+    hist = torch.bincount(out[2].reshape(-1), minlength=14)[:14].tolist()
+    ms_full = cuda_ms(torch, lambda: run(st, sched, coh_g, b_g, 128))
+    g_ok = (h.hexdigest() == golden["sched_sha256"]
+            and got_d == golden["final_sha256"]
+            and frac == golden["in_cs_frac"]
+            and hist == golden["final_pc_histogram"])
+    bound = k2_bound(Tab, T, golden["steps"])
+    emit({"phase": "golden_tick", "equal": g_ok,
+          "schedule_equal": h.hexdigest() == golden["sched_sha256"],
+          "final_equal": {n: got_d[n] == golden["final_sha256"][n]
+                          for n in names},
+          "in_cs_frac": frac, "final_pc_histogram": hist,
+          "schedule_seconds": sched_s, "kernel_ms": ms_full,
+          "bound_ms": bound["bound_ms"], "reference": golden["source"],
+          "reference_jax": golden["jax"]})
+    del sched, st, out
+    if not g_ok:
+        raise SystemExit("golden_tick: K2 or the schedule differs from the "
+                         "reference's digests")
+
+    # -- schedule_check: run_schedule on the card equals the CPU's ---------
+    rows = []
+    rng = np.random.default_rng(0)
+    sch = rng.integers(0, 4, 300)
+    for alg in ("alock", "mcs", "spinlock", "hlock", "alock-rw"):
+        s_gpu, t_gpu = run_schedule(alg, (0, 0, 1, 1), (2, 3), sch,
+                                    device=dev)
+        s_cpu, t_cpu = run_schedule(alg, (0, 0, 1, 1), (2, 3), sch,
+                                    device="cpu")
+        ok = all(torch.equal(a.cpu(), b) for a, b in
+                 zip(list(s_gpu) + list(t_gpu), list(s_cpu) + list(t_cpu)))
+        rows.append({"alg": alg, "steps": len(sch), "equal": ok,
+                     "cs_steps": int((t_gpu[0] == mc.CS).any(1).sum())})
+    emit({"phase": "schedule_check", "equal": all(r["equal"] for r in rows),
+          "algorithms": rows})
+    if not all(r["equal"] for r in rows):
+        raise SystemExit("schedule_check: run_schedule differs between cuda "
+                         "and cpu")
+
+    # -- main_path_tick: monte_carlo_cs_entries at the path shape ----------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tops.reset_exec_stats()                  # every launch count to 0
+    t0 = time.perf_counter()
+    res = tops.monte_carlo_cs_entries(Tab, T, TICK_PATH["steps"],
+                                      TICK_COHORTS, b_init=TICK_B_INIT,
+                                      seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = tops.exec_stats()                # read just after
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    hist = res["final_pc_histogram"].tolist()
+    problems = []
+    if stats["launches"] != 1:
+        problems.append(f"K2 launched {stats['launches']} times, not once")
+    if sum(hist) != Tab * T or not 0.0 <= res["in_cs_frac"] <= 1.0:
+        problems.append(f"bad statistics {res}")
+    if res["in_cs_frac"] != golden["in_cs_frac"] \
+            or hist != golden["final_pc_histogram"]:
+        problems.append("statistics differ from the reference's")
+    emit({"phase": "main_path_tick", **TICK_PATH,
+          "cohorts": list(TICK_COHORTS), "b_init": list(TICK_B_INIT),
+          "seed": 0, "kernel_launches": stats["launches"],
+          "wall_seconds": wall, "seconds": stats["seconds"],
+          "table_steps_per_second": Tab * TICK_PATH["steps"] / wall,
+          "peak_device_memory_mib": peak_mib,
+          "in_cs_frac": res["in_cs_frac"], "final_pc_histogram": hist,
+          "problems": problems})
+    if problems:
+        raise SystemExit("main_path_tick: " + "; ".join(problems))
+    return {
+        "name": "alock_tick", "route": "cuda",
+        "source": "src/repro_torch/csrc/alock_tick.cu",
+        "replaces": "src/repro/kernels/alock_tick/kernel.py:26",
+        "launches": stats["launches"], "max_abs_err": max_err,
+        "tolerance": 0,
+        "shape": dict(TICK_PATH), "ms": ms_full,
+        # the plain version at the path's tables and threads with the steps
+        # cut to plain_steps; ms_at_plain_steps is the kernel at that cut
+        "plain_ms": plain_ms_cut, "plain_steps": TICK_STEPS_CUT,
+        "ms_at_plain_steps": ms_cut,
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "bound_bytes_ms": bound["bound_bytes_ms"],
+        "bound_operations_ms": bound["bound_operations_ms"],
+        "library_ms": None,
+    }
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -603,7 +859,7 @@ def main():
     libs = _build.build_all(
         [(el_kernel.SOURCE, "event_loop", el_kernel.NVCC_FLAGS)]
         + [(_build.CSRC / f"{stem}.cu", stem, _build.FLAGS)
-           for stem in FLOAT_LIBRARIES])
+           for stem in LIBRARIES])
     lib = el_kernel.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": el_kernel.build_seconds(),
@@ -642,8 +898,26 @@ def main():
     on_gpu = precompute_draws(seeds, edges, zcdf, 2048, 20, 50, rw=True,
                               device=dev)
     prng_equal = all(torch.equal(a, b.cpu()) for a, b in zip(on_cpu, on_gpu))
+    # the shaped schedule stream of the lock-property path, whole and in
+    # slabs of rows
+    from repro_torch.kernels.alock_tick import ops as tick_ops
+    sched_rows = []
+    for seed in (0, 1, 7, 2**31 - 1):
+        for n, steps, T in ((64, 1000, 16), (37, 333, 3), (5, 7, 1)):
+            a = tick_ops.schedule(n, steps, T, seed, "cpu")
+            b = tick_ops.schedule(n, steps, T, seed, dev)
+            sched_rows.append({"seed": seed, "shape": [n, steps], "T": T,
+                               "differing": int((a != b.cpu()).sum())})
+    chunk, tick_ops.SCHED_CHUNK_ELEMS = tick_ops.SCHED_CHUNK_ELEMS, 3000
+    slabbed = tick_ops.schedule(64, 1000, 16, 7, dev)
+    tick_ops.SCHED_CHUNK_ELEMS = chunk
+    slab_equal = torch.equal(slabbed, tick_ops.schedule(64, 1000, 16, 7,
+                                                        dev))
+    prng_equal = (prng_equal and slab_equal
+                  and not any(r["differing"] for r in sched_rows))
     emit({"phase": "prng", "equal": prng_equal, "streams": len(on_gpu),
-          "shape": list(on_gpu[0].shape)})
+          "shape": list(on_gpu[0].shape), "schedule": sched_rows,
+          "schedule_slabs_equal": slab_equal})
     if not prng_equal:
         raise SystemExit("prng: the draw stream differs between cpu and cuda")
 
@@ -1077,11 +1351,9 @@ def main():
 
     # -- the attention and SSD entry points (K3-K6) ------------------------
     float_records = float_kernel_phases(torch, dev)
-    emit({"phase": "library_baselines",
-          "note": "bounds of the kernel still to be ported (K2, at its test "
-                  "shape); K3-K6 bounds, plain and library times are in "
-                  "float_timings",
-          "kernels": {"K2": dict(k2_bound(), library_ms=None)}})
+
+    # -- the lock-property path (K2) ----------------------------------------
+    tick_record = tick_phases(torch, dev, np)
 
     # -- the per-kernel record ----------------------------------------------
     emit({"kernels": [{
@@ -1116,7 +1388,7 @@ def main():
         "bound_by": "bytes" if obytes_ms >= oops_ms else "operations",
         "bound_bytes_ms": obytes_ms, "bound_operations_ms": oops_ms,
         "library_ms": None,
-    }] + float_records})
+    }, tick_record] + float_records})
     print(smi, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,10 +17,17 @@ plus the key-derivation layout the reference stream uses:
                        ``threefry(k, counter=(0, 0))``;
   * ``uniform(k)``     ``bitcast((bits >> 9) | 0x3F800000) - 1.0`` in f32,
                        i.e. the 23 mantissa bits of a float in [1, 2);
-  * ``randint(k, lo, hi)``  splits ``k`` in two, draws 32 bits from each
-                       and combines ``(hi_bits % span) * (2**32 % span) +
-                       lo_bits % span`` modulo ``span`` in uint32
-                       arithmetic.
+  * ``random_bits(k, shape)``  32 bits per element of ``shape`` from one
+                       key: element ``c`` of the flat row-major index is
+                       ``b1 ^ b2`` of ``threefry(k, counter=(c >> 32,
+                       c & 0xFFFFFFFF))`` (the same partitionable layout;
+                       ``bits32`` is its ``shape=()`` case, counter 0);
+  * ``randint(k, shape, lo, hi)``  splits ``k`` in two, draws
+                       ``random_bits`` of ``shape`` from each and combines
+                       ``(hi_bits % span) * (2**32 % span) + lo_bits %
+                       span`` modulo ``span`` in uint32 arithmetic — what
+                       ``jax.random.randint(key, shape, lo, hi, int32)``
+                       gives.
 
 Torch has next to no ``uint32`` arithmetic, so every 32-bit word rides in
 an ``int64`` tensor and is masked back to 32 bits after each add or shift;
@@ -79,10 +86,40 @@ def split(k, num: int):
     return threefry2x32(k1[None], k2[None], 0, j)
 
 
+def random_bits(k, shape=(), rows=None) -> torch.Tensor:
+    """32 random bits (int64 tensor holding uint32 values) per element of
+    ``shape`` from each key of ``k``: the result has shape ``k[0].shape +
+    shape``. The flat row-major index over ``shape`` is the 64-bit
+    counter, split into its hi and lo words. ``rows=(r0, r1)`` draws only
+    rows ``r0 .. r1-1`` of the leading axis (counters ``r0 * inner ..
+    r1 * inner - 1``, ``inner`` the product of the other axes), so a
+    large shape can be drawn a slab at a time with bounded temporaries."""
+    shape = tuple(int(d) for d in shape)
+    k1, k2 = k
+    if not shape:
+        b1, b2 = threefry2x32(k1, k2, 0, 0)
+        return b1 ^ b2
+    r0, r1 = (0, shape[0]) if rows is None else rows
+    if not 0 <= r0 <= r1 <= shape[0]:
+        raise ValueError(f"rows {rows} outside the leading axis of {shape}")
+    inner = 1
+    for d in shape[1:]:
+        inner *= d
+    dev = k1.device if isinstance(k1, torch.Tensor) else None
+    c = torch.arange(r0 * inner, r1 * inner, dtype=torch.int64,
+                     device=dev).reshape((r1 - r0,) + shape[1:])
+
+    def widen(a):
+        if isinstance(a, torch.Tensor):
+            return a.reshape(a.shape + (1,) * len(shape))
+        return a
+    b1, b2 = threefry2x32(widen(k1), widen(k2), c >> 32, c & _M32)
+    return b1 ^ b2
+
+
 def bits32(k) -> torch.Tensor:
     """One 32-bit draw per key (int64 tensor holding uint32 values)."""
-    b1, b2 = threefry2x32(k[0], k[1], 0, 0)
-    return b1 ^ b2
+    return random_bits(k)
 
 
 def uniform(k) -> torch.Tensor:
@@ -97,13 +134,15 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return fb.view(torch.float32) - 1.0
 
 
-def randint(k, minval: int, maxval: int) -> torch.Tensor:
-    """One int32 in ``[minval, maxval)`` per key (``minval`` where the
-    range is empty), with the double-width modulus combine described in
-    the module docstring. The bounds are Python ints within int32."""
+def randint(k, shape, minval: int, maxval: int, rows=None) -> torch.Tensor:
+    """int32 draws in ``[minval, maxval)`` (``minval`` where the range is
+    empty) of ``shape`` per key, with the double-width modulus combine
+    described in the module docstring; ``shape=()`` gives one draw per
+    key. The bounds are Python ints within int32. ``rows`` as in
+    ``random_bits``: rows ``r0 .. r1-1`` of the full draw."""
     sub = split(k, 2)
-    bits = bits32(sub)                       # (2, ...) higher, lower
-    higher, lower = bits[0], bits[1]
+    higher = random_bits((sub[0][0], sub[1][0]), shape, rows)
+    lower = random_bits((sub[0][1], sub[1][1]), shape, rows)
     span = maxval - minval if maxval > minval else 1
     mult = (1 << 16) % span
     mult = (mult * mult) % span

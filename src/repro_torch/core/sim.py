@@ -19,6 +19,11 @@ Two backends share the semantics (``kernels/event_loop``):
 an explicitly requested CPU. Every entry point takes ``device=`` and
 defaults to ``"cuda"``; without a CUDA device that raises.
 
+The semantic machine itself — ``Sem``, ``init_sem`` and ``sem_step``, the
+plain engine's transition — is driven by an explicit thread schedule in
+``run_schedule``, which the property tests hold against the Python
+machines of ``core/machine.py``.
+
 Workloads are declarative ``repro_torch.workloads.Workload`` specs lowered
 to ``WorkloadOperands``; a legacy flat ``SimConfig`` rides the
 ``from_simconfig`` adapter. Open-loop specs (``Workload.arrivals``) also
@@ -30,19 +35,49 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.cost_model import CostModel
 from repro_torch.device import resolve_backend, resolve_device
 from repro_torch.kernels.event_loop.ops import run_events
-from repro_torch.kernels.event_loop.ref import LAT_SAMPLES
+from repro_torch.kernels.event_loop.ref import (LAT_SAMPLES, Sem, init_sem,
+                                               sem_step)
 from repro_torch.workloads import (Workload, WorkloadOperands, as_workload,
                                    lower, zipf_cdf)
 
 __all__ = [
-    "SimConfig", "SimResult", "simulate", "topology", "zipf_cdf",
-    "resolve_backend", "resolve_device", "Workload", "WorkloadOperands",
-    "LAT_SAMPLES",
+    "SimConfig", "SimResult", "Sem", "simulate", "topology", "zipf_cdf",
+    "resolve_backend", "resolve_device", "init_sem", "sem_step",
+    "run_schedule", "Workload", "WorkloadOperands", "LAT_SAMPLES",
 ]
+
+
+def run_schedule(alg, cohorts, b_init, schedule, n_locks: int = 1,
+                 device="cuda"):
+    """Drive the tensor machine with an explicit thread schedule (single
+    lock, semantics only). Returns ``(sem, trace)``: the final ``Sem`` and
+    the per-step ``(pc (S,T), tail[0] (S,2), victim[0] (S,), budget
+    (S,T))`` after each step, all int32 on ``device``."""
+    dev = resolve_device(device)
+    T = len(cohorts)
+    sem = init_sem(T, n_locks, targets=[0] * T, cohorts=cohorts, device=dev)
+    sem = Sem(*(a[None] for a in sem))
+    i32 = dict(dtype=torch.int32, device=dev)
+    tn = torch.tensor([0 if c == 0 else 1 for c in cohorts],  # any split
+                      **i32)
+    ln = torch.zeros(n_locks, **i32)
+    b_init = torch.as_tensor(np.asarray(b_init, np.int32), device=dev)
+    sched = torch.as_tensor(np.asarray(schedule, np.int64).reshape(-1),
+                            device=dev)
+    S = sched.shape[0]
+    trace = tuple(torch.empty(shape, **i32)
+                  for shape in ((S, T), (S, 2), (S,), (S, T)))
+    for i in range(S):
+        sem, _, _ = sem_step(alg, sem, sched[i:i + 1], b_init, tn, ln)
+        for acc, a in zip(trace, (sem.pc, sem.tail[:, 0], sem.victim[:, 0],
+                                  sem.budget)):
+            acc[i] = a[0]
+    return Sem(*(a[0] for a in sem)), trace
 
 
 class SimConfig(NamedTuple):

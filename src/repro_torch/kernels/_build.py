@@ -93,7 +93,7 @@ def load(source: Path, stem: str, setup, flags=FLAGS) -> ctypes.CDLL:
     return _LIBS[stem]
 
 
-def load_float_kernel(stem: str, signatures: dict) -> ctypes.CDLL:
+def load_library(stem: str, signatures: dict) -> ctypes.CDLL:
     """``csrc/<stem>.cu`` loaded, with each ``name -> argtypes`` of
     ``signatures`` set (every entry point returns an int) and the
     library's ``kernel_error_string``."""

@@ -103,7 +103,7 @@ def precompute_draws(seed, edges, zcdf, n_events: int, N: int, kpn: int,
         uni = [0, 2, 3][:n_sub - 1]
         fl = prng.uniform((sub[0][uni], sub[1][uni]))
         u1[:, s:s + step] = fl[0]
-        r2[:, s:s + step] = prng.randint((sub[0][1], sub[1][1]), 0,
+        r2[:, s:s + step] = prng.randint((sub[0][1], sub[1][1]), (), 0,
                                          max(N - 1, 1))
         ph = ((i[:, :, None] >= edges[:, None, :]).sum(-1) - 1
               if P > 1 else None)

@@ -39,9 +39,13 @@ f32 against f32.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from repro_torch.core import machine as mc
+from repro_torch.device import resolve_device
 from repro_torch.traffic.metrics import COMPLETED, DROPPED, IN_SERVICE
 
 LAT_SAMPLES = 1 << 15
@@ -59,19 +63,302 @@ def _gat(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return a.gather(1, idx.clamp(min=0).long()[:, None])[:, 0]
 
 
-def _put(a: torch.Tensor, idx: torch.Tensor, val, mask: torch.Tensor):
-    """In place: ``a[b, idx[b]] = val[b]`` on the rows where ``mask``."""
+def _masked(a: torch.Tensor, idx: torch.Tensor, val, mask: torch.Tensor):
+    """Index and source of the scatter ``a[b, idx[b]] = val[b]`` on the
+    rows where ``mask`` (the current value elsewhere)."""
     ix = idx.clamp(min=0).long()[:, None]
     cur = a.gather(1, ix)[:, 0]
     if not isinstance(val, torch.Tensor):
         val = torch.full_like(cur, val)
-    a.scatter_(1, ix, torch.where(mask, val.to(a.dtype), cur)[:, None])
+    return ix, torch.where(mask, val.to(a.dtype), cur)[:, None]
+
+
+def _put(a: torch.Tensor, idx: torch.Tensor, val, mask: torch.Tensor):
+    """In place: ``a[b, idx[b]] = val[b]`` on the rows where ``mask``."""
+    a.scatter_(1, *_masked(a, idx, val, mask))
+
+
+def _set(a: torch.Tensor, idx: torch.Tensor, val, mask: torch.Tensor):
+    """``_put`` on a copy; ``a`` itself is left as it was."""
+    return a.scatter(1, *_masked(a, idx, val, mask))
 
 
 def _scale_cost(c: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """Fail-slow multiplier on an integer-ns cost: round-to-nearest-even
     of the f32 product (exact below 2**24, so ``m == 1.0`` is inert)."""
     return torch.round(c.to(torch.float32) * m).to(torch.int32)
+
+
+class Sem(NamedTuple):
+    """Semantic (cost-free) machine state, int32. Every field may carry a
+    leading replica axis B, which ``sem_step`` steps all at once."""
+    tail: torch.Tensor     # (K,2) tid+1 per cohort
+    victim: torch.Tensor   # (K,)
+    word: torch.Tensor     # (K,) mcs/spinlock lock word; alock-rw readers
+    budget: torch.Tensor   # (T,)
+    nxt: torch.Tensor      # (T,)
+    prev: torch.Tensor     # (T,)
+    pc: torch.Tensor       # (T,)
+    target: torch.Tensor   # (T,) lock index
+    cohort: torch.Tensor   # (T,) 0 local / 1 remote
+
+
+def init_sem(n_threads: int, n_locks: int, targets=None, cohorts=None,
+             device="cuda") -> Sem:
+    """Fresh state of one replica: empty tails and lock words, every
+    thread in NCS with budget -1; ``targets`` / ``cohorts`` (one per
+    thread) default to 0."""
+    dev = resolve_device(device)
+    T, K = n_threads, n_locks
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def per_thread(v):
+        return (torch.zeros(T, **i32) if v is None else
+                torch.as_tensor(np.asarray(v, np.int32), device=dev))
+    return Sem(tail=torch.zeros((K, 2), **i32),
+               victim=torch.zeros(K, **i32), word=torch.zeros(K, **i32),
+               budget=torch.full((T,), -1, **i32),
+               nxt=torch.zeros(T, **i32), prev=torch.zeros(T, **i32),
+               pc=torch.full((T,), mc.NCS, **i32),
+               target=per_thread(targets), cohort=per_thread(cohorts))
+
+
+def _rows(a, B: int, dev) -> torch.Tensor:
+    """A per-replica operand as a (B, n) int32 tensor on ``dev``: a 1-D
+    operand is shared by every replica, a 2-D one has its own row each."""
+    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+    if t.dtype != torch.int32 or t.device != dev:
+        t = t.to(device=dev, dtype=torch.int32)
+    return t[None].expand(B, t.shape[0]) if t.dim() == 1 else t
+
+
+def sem_step(alg, sem: Sem, tid, b_init, thread_node, lock_node,
+             new_target=None, new_cohort=None, new_read=None, rack=None):
+    """One semantic step of thread ``tid``: ``(sem', opcode, node)`` —
+    the new state (``sem`` itself is left as it was), the step's cost
+    opcode and the node whose RNIC serves it (0 for CPU-side work).
+
+    Used by the plain event loop and by the schedule-driven runner
+    ``core.sim.run_schedule``. ``new_target`` / ``new_cohort`` are the
+    lock and cohort an NCS step re-arms with (default: the thread's
+    current ones); ``new_read`` routes that re-arm to the reader path
+    (alock-rw; default: a writer); ``rack`` is the per-node rack id that
+    hlock's cost tiers read (default: every node its own rack).
+
+    Either one replica — ``sem`` fields ``(K,2) (K,) (T,)``, ``tid`` a
+    scalar, ``b_init (2,)``, ``thread_node (T,)``, ``lock_node (K,)``,
+    ``rack (N,)`` — or B at once, each with a leading axis B (``tid``
+    and the ``new_*`` values ``(B,)``; the topology and ``b_init`` may
+    be shared without it).
+    """
+    single = sem.pc.dim() == 1
+    if single:
+        sem = Sem(*(a[None] for a in sem))
+    dev = sem.pc.device
+    B, T = sem.pc.shape
+    K = sem.victim.shape[1]
+    i32 = torch.int32
+    if not (isinstance(tid, torch.Tensor) and tid.dim() == 1):
+        tid = torch.as_tensor(tid, device=dev).reshape(-1).expand(B)
+    binit = _rows(b_init, B, dev)
+    tn, ln = _rows(thread_node, B, dev), _rows(lock_node, B, dev)
+    is_hl = alg == "hlock"
+    is_rw = alg == "alock-rw"
+    is_alock = alg in ("alock", "hlock", "alock-rw")
+    is_spin = alg == "spinlock"
+    if not (is_alock or is_spin or alg == "mcs"):
+        raise ValueError(f"unknown algorithm {alg!r}")
+    if is_hl and rack is not None:
+        rk = _rows(rack, B, dev)
+
+        def rack_of(nd):
+            return _gat(rk, nd)
+    else:
+        def rack_of(nd):
+            return nd
+
+    tail2 = sem.tail.reshape(B, 2 * K)
+    victim, word = sem.victim, sem.word
+    pc, bud, nxt, prv = sem.pc, sem.budget, sem.nxt, sem.prev
+    tgt, coh = sem.target, sem.cohort
+    me = (tid + 1).to(i32)
+    p = _gat(pc, tid)
+    tg, ch, bd = _gat(tgt, tid), _gat(coh, tid), _gat(bud, tid)
+    nx, pv = _gat(nxt, tid), _gat(prv, tid)
+    mynode = _gat(tn, tid)
+
+    def arg(v, default):
+        if v is None:
+            return default
+        if not (isinstance(v, torch.Tensor) and v.dim() == 1):
+            v = torch.as_tensor(v, device=dev).reshape(-1).expand(B)
+        return v
+    new_t, new_c = arg(new_target, tg), arg(new_cohort, ch)
+
+    # -- PC class masks (exactly one true per row) --------------------------
+    is_ncs, is_swap = p == mc.NCS, p == mc.SWAP
+    is_wn, is_sb = p == mc.WRITE_NEXT, p == mc.SPIN_BUDGET
+    is_sv, is_svr = p == mc.SET_VICTIM, p == mc.SET_VICTIM_R
+    is_pw, is_pwr = p == mc.PET_WAIT, p == mc.PET_WAIT_R
+    is_cs, is_rc = p == mc.CS, p == mc.REL_CAS
+    is_sn, is_ps = p == mc.SPIN_NEXT, p == mc.PASS
+    is_slc, is_slr = p == mc.SL_CAS, p == mc.SL_REL
+    if is_rw:
+        is_rdt, is_rdc = p == mc.RD_TRY, p == mc.RD_CS
+        is_rdr, is_wd = p == mc.RD_REL, p == mc.WR_DRAIN
+
+    c0 = ch == 0
+    Bc = torch.where(c0, binit[:, 0], binit[:, 1])
+    if is_alock:
+        t01 = sem.tail.gather(1, tg.long()[:, None, None].expand(B, 1, 2))
+        t0k, t1k = t01[:, 0, 0], t01[:, 0, 1]
+        my_tail = 2 * tg + (~c0).to(i32)
+        tail_c = torch.where(c0, t0k, t1k)
+        tail_o = torch.where(c0, t1k, t0k)
+        vk = _gat(victim, tg)
+    if not is_alock or is_rw:
+        wk = _gat(word, tg)
+    pred, succ = pv - 1, nx - 1
+    has_succ = nx != 0
+    # mcs/spinlock keep the lock word where the ALock family keeps its
+    # cohort tails
+    prev_val = tail_c if is_alock else wk
+    empty = prev_val == 0
+    solo = prev_val == me
+    if is_alock:
+        can = (tail_o == 0) | (vk != ch)
+    else:
+        free = wk == 0
+    newb = (bd - 1) if is_alock else torch.ones_like(bd)
+    if is_rw:
+        can_rd = (tail_c == 0) & (tail_o == 0)
+
+    # -- lock word / tails / victim -----------------------------------------
+    if is_alock:
+        tail2 = _set(tail2, my_tail, me, is_swap)
+        tail2 = _set(tail2, my_tail, 0, is_rc & solo)
+        victim = _set(victim, tg, ch, is_sv | is_svr)
+    else:
+        word = _set(word, tg, me, is_swap | (is_slc & free))
+        word = _set(word, tg, 0, (is_rc & solo) | is_slr)
+    if is_rw:
+        word = _set(word, tg, wk + 1, is_rdt & can_rd)
+        word = _set(word, tg, wk - 1, is_rdr)
+
+    # -- per-thread descriptors ---------------------------------------------
+    prv = _set(prv, tid, prev_val, is_swap)
+    nxt = _set(nxt, tid, 0, is_ncs)
+    nxt = _set(nxt, pred, me, is_wn)
+    bud_val = torch.where(is_ncs, torch.full_like(bd, -1), Bc)
+    bud_m = is_ncs
+    if is_alock:
+        bud_m = bud_m | (is_pwr & can) | (is_swap & empty)
+    bud = _set(bud, tid, bud_val, bud_m)
+    bud = _set(bud, succ, newb, is_ps)
+    tgt = _set(tgt, tid, new_t, is_ncs)
+    coh = _set(coh, tid, new_c, is_ncs)
+
+    # -- next PC -------------------------------------------------------------
+    def pcv(v):
+        return torch.full_like(p, v)
+
+    ecs = mc.WR_DRAIN if is_rw else mc.CS
+    if is_rw:
+        first = torch.where(arg(new_read, torch.zeros_like(tg)) != 0,
+                            pcv(mc.RD_TRY), pcv(mc.SWAP))
+    else:
+        first = pcv(mc.SL_CAS if is_spin else mc.SWAP)
+    if is_alock:
+        pc_swap = torch.where(empty, pcv(mc.SET_VICTIM), pcv(mc.WRITE_NEXT))
+        pc_sb = torch.where(
+            bd == -1, pcv(mc.SPIN_BUDGET),
+            torch.where(bd == 0, pcv(mc.SET_VICTIM_R), pcv(ecs)))
+    else:
+        pc_swap = torch.where(empty, pcv(mc.CS), pcv(mc.WRITE_NEXT))
+        pc_sb = torch.where(bd == -1, pcv(mc.SPIN_BUDGET), pcv(mc.CS))
+    table = [
+        (is_ncs, first), (is_swap, pc_swap),
+        (is_wn, pcv(mc.SPIN_BUDGET)), (is_sb, pc_sb),
+        (is_sv, pcv(mc.PET_WAIT)), (is_svr, pcv(mc.PET_WAIT_R)),
+        (is_cs, pcv(mc.SL_REL if is_spin else mc.REL_CAS)),
+        (is_rc, torch.where(solo, pcv(mc.NCS), pcv(mc.SPIN_NEXT))),
+        (is_sn, torch.where(has_succ, pcv(mc.PASS), pcv(mc.SPIN_NEXT))),
+        (is_ps, pcv(mc.NCS)),
+        (is_slr, pcv(mc.NCS)),
+    ]
+    if is_alock:
+        table += [
+            (is_pw, torch.where(can, pcv(ecs), pcv(mc.PET_WAIT))),
+            (is_pwr, torch.where(can, pcv(ecs), pcv(mc.PET_WAIT_R)))]
+    else:
+        table.append((is_slc, torch.where(free, pcv(mc.CS), pcv(mc.SL_CAS))))
+    if is_rw:
+        table += [
+            (is_rdt, torch.where(can_rd, pcv(mc.RD_CS), pcv(mc.RD_TRY))),
+            (is_rdc, pcv(mc.RD_REL)), (is_rdr, pcv(mc.NCS)),
+            (is_wd, torch.where(wk == 0, pcv(mc.CS), pcv(mc.WR_DRAIN))),
+        ]
+    new_pc = p
+    for cond, val in table:                 # the masks are disjoint
+        new_pc = torch.where(cond, val, new_pc)
+    pc = _set(pc, tid, new_pc, torch.ones_like(is_ncs))
+
+    # -- cost opcode + the node whose RNIC serves it ------------------------
+    lnode = _gat(ln, tg)
+    pred_node, succ_node = _gat(tn, pred), _gat(tn, succ)
+
+    def opv(v):
+        return torch.full_like(p, v)
+
+    if is_hl:
+        # three tiers: own node -> shared memory, same rack -> the
+        # loopback/rack fabric, cross rack -> full RDMA
+        rk_me = rack_of(mynode)
+
+        def tiered(nd):
+            return torch.where(
+                nd == mynode, opv(OP_LOCAL),
+                torch.where(rack_of(nd) == rk_me, opv(OP_LOOP),
+                            opv(OP_RDMA)))
+
+        lock_code = tiered(lnode)
+        wn_code, ps_code = tiered(pred_node), tiered(succ_node)
+    elif is_alock:
+        lock_code = torch.where(c0, opv(OP_LOCAL), opv(OP_RDMA))
+        wn_code = torch.where(pred_node == mynode, opv(OP_LOCAL),
+                              opv(OP_RDMA))
+        ps_code = torch.where(succ_node == mynode, opv(OP_LOCAL),
+                              opv(OP_RDMA))
+    else:
+        lock_code = torch.where(lnode == mynode, opv(OP_LOOP), opv(OP_RDMA))
+        wn_code = torch.where(pred_node == mynode, opv(OP_LOOP),
+                              opv(OP_RDMA))
+        ps_code = torch.where(succ_node == mynode, opv(OP_LOOP),
+                              opv(OP_RDMA))
+    lock_m = (is_swap | is_sv | is_svr | is_pw | is_pwr | is_rc | is_slc
+              | is_slr)
+    cs_m = is_cs
+    if is_rw:
+        lock_m = lock_m | is_rdt | is_rdr | is_wd
+        cs_m = cs_m | is_rdc
+    code = opv(0)
+    for cond, val in (
+            (is_ncs, opv(OP_THINK)), (is_wn, wn_code),
+            (is_sb, torch.where(bd == -1, opv(OP_POLL), opv(OP_LOCAL))),
+            (cs_m, opv(OP_CS)),
+            (is_sn, torch.where(has_succ, opv(OP_LOCAL), opv(OP_POLL))),
+            (is_ps, ps_code), (lock_m, lock_code)):
+        code = torch.where(cond, val, code)
+    node = opv(0)
+    for cond, val in ((is_wn, pred_node), (is_ps, succ_node),
+                      (lock_m, lnode)):
+        node = torch.where(cond, val, node)
+
+    out = Sem(tail=tail2.reshape(B, K, 2), victim=victim, word=word,
+              budget=bud, nxt=nxt, prev=prv, pc=pc, target=tgt, cohort=coh)
+    if single:
+        return Sem(*(a[0] for a in out)), code[0], node[0]
+    return out, code, node
 
 
 def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
@@ -111,11 +398,8 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
         return torch.zeros(shape, dtype=dt, device=dev)
 
     # fresh replicas: empty tails / lock words, every thread in NCS
-    t0, t1, vic = zeros((B, K)), zeros((B, K)), zeros((B, K))
-    wrd = zeros((B, K)) if is_rw else None       # per-lock reader counts
-    pc = torch.full((B, T), mc.NCS, dtype=i32, device=dev)
-    bud = torch.full((B, T), -1, dtype=i32, device=dev)
-    nxt, prv, tgt, coh = (zeros((B, T)) for _ in range(4))
+    sem = Sem(*(a[None].expand((B,) + a.shape).clone()
+                for a in init_sem(T, K, device=dev)))
     ready, opst = zeros((B, T), i64), zeros((B, T), i64)
     busy = zeros((B, N), i64)
     done = zeros((B, T))
@@ -136,8 +420,6 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
         arrptr, qlen = zeros(B), zeros(B)
         wq = torch.full((B, R), -1, dtype=i64, device=dev)
         soj = torch.full((B, R), -1, dtype=i64, device=dev)
-    machine = [a for a in (t0, t1, vic, wrd, pc, bud, nxt, prv, tgt, coh)
-               if a is not None]
 
     def at_phase(a, ph):
         return a[:, 0] if ph is None else a[rows, ph]
@@ -162,7 +444,7 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
         if R:
             # idle threads wake at the earliest available arrival; busy
             # threads keep their own clocks
-            pend = (pc == mc.NCS) & (curreq < 0)
+            pend = (sem.pc == mc.NCS) & (curreq < 0)
             avail = (rstat == 0) & (tok == 1)
             next_arr = torch.where(avail, arr, _NEVER).min(1).values
             wake = torch.where(pend, torch.maximum(ready, next_arr[:, None]),
@@ -180,10 +462,7 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
         emin = elig.min(1).values
         tid = torch.where(elig == emin[:, None], tids, T).min(1).values
         now = _gat(wake, tid)
-        me = (tid + 1).to(i32)
-        p = _gat(pc, tid)
-        tg, ch, bd = _gat(tgt, tid), _gat(coh, tid), _gat(bud, tid)
-        nx, pv = _gat(nxt, tid), _gat(prv, tid)
+        p = _gat(sem.pc, tid)
         mynode = _gat(tn, tid)
 
         # -- workload draw (consumed by the NCS re-arm only) ----------------
@@ -196,8 +475,8 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
             new_c = (_gat(rk, node_w) != rk_me).to(i32)
         else:
             new_c = (node_w != mynode).to(i32)
-        if is_rw:
-            new_r = u4s[:, i] < _gat(at_phase(wl.read_frac, ph), tid)
+        new_r = (u4s[:, i] < _gat(at_phase(wl.read_frac, ph), tid)
+                 if is_rw else None)
 
         if R:
             # -- arrival ingestion: every request with arr <= now joins the
@@ -225,170 +504,25 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
             qlen = qlen - do_disp.to(i32)
             # an idle thread with nothing to take makes no machine step
             step_ok = live & (~pend_tid | do_disp)
-            before = [a.clone() for a in machine]
 
-        # -- PC class masks (exactly one true per row) ----------------------
-        is_ncs, is_swap = p == mc.NCS, p == mc.SWAP
-        is_wn, is_sb = p == mc.WRITE_NEXT, p == mc.SPIN_BUDGET
-        is_sv, is_svr = p == mc.SET_VICTIM, p == mc.SET_VICTIM_R
-        is_pw, is_pwr = p == mc.PET_WAIT, p == mc.PET_WAIT_R
-        is_cs, is_rc = p == mc.CS, p == mc.REL_CAS
-        is_sn, is_ps = p == mc.SPIN_NEXT, p == mc.PASS
-        is_slc, is_slr = p == mc.SL_CAS, p == mc.SL_REL
+        # -- one transition of thread tid: the new machine, the cost
+        # opcode and the node whose RNIC serves it
+        nsem, code, tnode = sem_step(alg, sem, tid, binit, tn, ln, new_t,
+                                     new_c, new_r, rk)
+        new_pc = _gat(nsem.pc, tid)
+        is_ncs, is_sb = p == mc.NCS, p == mc.SPIN_BUDGET
+        is_ps = p == mc.PASS
+        fin_m = (p == mc.REL_CAS) | is_ps | (p == mc.SL_REL)
         if is_rw:
-            is_rdt, is_rdc = p == mc.RD_TRY, p == mc.RD_CS
-            is_rdr, is_wd = p == mc.RD_REL, p == mc.WR_DRAIN
-
-        c0 = ch == 0
-        Bc = torch.where(c0, binit[:, 0], binit[:, 1])
-        t0k, t1k = _gat(t0, tg), _gat(t1, tg)
-        tail_c = torch.where(c0, t0k, t1k)
-        tail_o = torch.where(c0, t1k, t0k)
-        vk = _gat(vic, tg)
-        pred, succ = pv - 1, nx - 1
-        has_succ = nx != 0
-        # mcs/spinlock keep the lock word where the ALock family keeps
-        # tail 0
-        prev_val = tail_c if is_alock else t0k
-        empty = prev_val == 0
-        solo = prev_val == me
-        free = t0k == 0
-        can = (tail_o == 0) | (vk != ch)
-        newb = (bd - 1) if is_alock else torch.ones_like(bd)
-        if is_rw:
-            can_rd = (tail_c == 0) & (tail_o == 0)
-            wdv = _gat(wrd, tg)
-
-        # -- lock word / tails / victim -------------------------------------
-        if is_alock:
-            _put(t0, tg, me, is_swap & c0)
-            _put(t1, tg, me, is_swap & ~c0)
-            _put(t0, tg, 0, is_rc & solo & c0)
-            _put(t1, tg, 0, is_rc & solo & ~c0)
-            _put(vic, tg, ch, is_sv | is_svr)
-        else:
-            _put(t0, tg, me, is_swap | (is_slc & free))
-            _put(t0, tg, 0, (is_rc & solo) | is_slr)
-        if is_rw:
-            _put(wrd, tg, wdv + 1, is_rdt & can_rd)
-            _put(wrd, tg, wdv - 1, is_rdr)
-
-        # -- per-thread descriptors -----------------------------------------
-        _put(prv, tid, prev_val, is_swap)
-        _put(nxt, tid, 0, is_ncs)
-        _put(nxt, pred, me, is_wn)
-        bud_val = torch.where(is_ncs, torch.full_like(bd, -1), Bc)
-        bud_m = is_ncs | (is_pwr & can)
-        if is_alock:
-            bud_m = bud_m | (is_swap & empty)
-        _put(bud, tid, bud_val, bud_m)
-        _put(bud, succ, newb, is_ps)
-        _put(tgt, tid, new_t, is_ncs)
-        _put(coh, tid, new_c, is_ncs)
-
-        # -- next PC ---------------------------------------------------------
-        def pcv(v):
-            return torch.full_like(p, v)
-
-        ecs = mc.WR_DRAIN if is_rw else mc.CS
-        if is_rw:
-            first = torch.where(new_r, pcv(mc.RD_TRY), pcv(mc.SWAP))
-        else:
-            first = pcv(mc.SL_CAS if is_spin else mc.SWAP)
-        if is_alock:
-            pc_swap = torch.where(empty, pcv(mc.SET_VICTIM),
-                                  pcv(mc.WRITE_NEXT))
-            pc_sb = torch.where(
-                bd == -1, pcv(mc.SPIN_BUDGET),
-                torch.where(bd == 0, pcv(mc.SET_VICTIM_R), pcv(ecs)))
-        else:
-            pc_swap = torch.where(empty, pcv(mc.CS), pcv(mc.WRITE_NEXT))
-            pc_sb = torch.where(bd == -1, pcv(mc.SPIN_BUDGET), pcv(mc.CS))
-        table = [
-            (is_ncs, first), (is_swap, pc_swap),
-            (is_wn, pcv(mc.SPIN_BUDGET)), (is_sb, pc_sb),
-            (is_sv, pcv(mc.PET_WAIT)), (is_svr, pcv(mc.PET_WAIT_R)),
-            (is_pw, torch.where(can, pcv(ecs), pcv(mc.PET_WAIT))),
-            (is_pwr, torch.where(can, pcv(ecs), pcv(mc.PET_WAIT_R))),
-            (is_cs, pcv(mc.SL_REL if is_spin else mc.REL_CAS)),
-            (is_rc, torch.where(solo, pcv(mc.NCS), pcv(mc.SPIN_NEXT))),
-            (is_sn, torch.where(has_succ, pcv(mc.PASS),
-                                pcv(mc.SPIN_NEXT))),
-            (is_ps, pcv(mc.NCS)),
-            (is_slc, torch.where(free, pcv(mc.CS), pcv(mc.SL_CAS))),
-            (is_slr, pcv(mc.NCS)),
-        ]
-        if is_rw:
-            table += [
-                (is_rdt, torch.where(can_rd, pcv(mc.RD_CS),
-                                     pcv(mc.RD_TRY))),
-                (is_rdc, pcv(mc.RD_REL)), (is_rdr, pcv(mc.NCS)),
-                (is_wd, torch.where(wdv == 0, pcv(mc.CS),
-                                    pcv(mc.WR_DRAIN))),
-            ]
-        new_pc = p
-        for cond, val in table:             # the masks are disjoint
-            new_pc = torch.where(cond, val, new_pc)
-        _put(pc, tid, new_pc, torch.ones_like(is_ncs))
+            fin_m = fin_m | (p == mc.RD_REL)
         if R:
             # a no-op event leaves the whole machine as it was
-            for a, b in zip(machine, before):
-                a.copy_(torch.where(step_ok[:, None], a, b))
+            sem = Sem(*(torch.where(step_ok.view((B,) + (1,) * (a.dim() - 1)),
+                                    a, b) for a, b in zip(nsem, sem)))
             ok = step_ok
         else:
+            sem = nsem
             ok = torch.ones_like(is_ncs)
-
-        # -- cost opcode + the node whose RNIC serves it --------------------
-        lnode = _gat(ln, tg)
-        pred_node, succ_node = _gat(tn, pred), _gat(tn, succ)
-
-        def opv(v):
-            return torch.full_like(p, v)
-
-        if is_hl:
-            # three tiers: own node -> shared memory, same rack -> the
-            # loopback/rack fabric, cross rack -> full RDMA
-            def tiered(nd):
-                return torch.where(
-                    nd == mynode, opv(OP_LOCAL),
-                    torch.where(_gat(rk, nd) == rk_me, opv(OP_LOOP),
-                                opv(OP_RDMA)))
-
-            lock_code = tiered(lnode)
-            wn_code, ps_code = tiered(pred_node), tiered(succ_node)
-        elif is_alock:
-            lock_code = torch.where(c0, opv(OP_LOCAL), opv(OP_RDMA))
-            wn_code = torch.where(pred_node == mynode, opv(OP_LOCAL),
-                                  opv(OP_RDMA))
-            ps_code = torch.where(succ_node == mynode, opv(OP_LOCAL),
-                                  opv(OP_RDMA))
-        else:
-            lock_code = torch.where(lnode == mynode, opv(OP_LOOP),
-                                    opv(OP_RDMA))
-            wn_code = torch.where(pred_node == mynode, opv(OP_LOOP),
-                                  opv(OP_RDMA))
-            ps_code = torch.where(succ_node == mynode, opv(OP_LOOP),
-                                  opv(OP_RDMA))
-        lock_m = (is_swap | is_sv | is_svr | is_pw | is_pwr | is_rc
-                  | is_slc | is_slr)
-        cs_m = is_cs
-        if is_rw:
-            lock_m = lock_m | is_rdt | is_rdr | is_wd
-            cs_m = cs_m | is_rdc
-        code = opv(0)
-        for cond, val in (
-                (is_ncs, opv(OP_THINK)), (is_wn, wn_code),
-                (is_sb, torch.where(bd == -1, opv(OP_POLL),
-                                    opv(OP_LOCAL))),
-                (cs_m, opv(OP_CS)),
-                (is_sn, torch.where(has_succ, opv(OP_LOCAL),
-                                    opv(OP_POLL))),
-                (is_ps, ps_code), (lock_m, lock_code)):
-            code = torch.where(cond, val, code)
-        tnode = opv(0)
-        for cond, val in ((is_wn, pred_node), (is_ps, succ_node),
-                          (lock_m, lnode)):
-            tnode = torch.where(cond, val, tnode)
 
         # -- cost application -----------------------------------------------
         # svc/wire scale by the target card's node, dt_plain by the caller's
@@ -409,9 +543,6 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
 
         # -- completion accounting: lat_val reads op_start BEFORE the
         # re-stamp, so it spans acquire-entry -> release exactly -----------
-        fin_m = is_rc | is_ps | is_slr
-        if is_rw:
-            fin_m = fin_m | is_rdr
         finished = fin_m & (new_pc == mc.NCS) & ok
         lat_val = now - _gat(opst, tid)
         _put(lat, latn % lat_samples, lat_val, finished)

@@ -49,7 +49,7 @@ def reset_launches() -> None:
 
 
 def load():
-    return _build.load_float_kernel("flash_attention", SIGNATURES)
+    return _build.load_library("flash_attention", SIGNATURES)
 
 
 def block_rows(hd: int) -> int:

@@ -50,7 +50,7 @@ def reset_launches() -> None:
 
 
 def load():
-    return _build.load_float_kernel("flash_attention_bwd", SIGNATURES)
+    return _build.load_library("flash_attention_bwd", SIGNATURES)
 
 
 def smem_bytes(hd: int) -> dict:

@@ -48,7 +48,7 @@ def reset_launches() -> None:
 
 
 def load():
-    return _build.load_float_kernel("ssd_scan", SIGNATURES)
+    return _build.load_library("ssd_scan", SIGNATURES)
 
 
 def smem_bytes(L: int, P: int, N: int) -> int:

@@ -33,10 +33,13 @@ def test_package_files_exist():
     assert "src/repro_torch/kernels/event_loop/kernel.py" in names
     for mod in ("_build", "flash_attention/kernel", "flash_attention/"
                 "kernel_bwd", "flash_attention/ops", "flash_attention/ref",
-                "ssd_scan/kernel", "ssd_scan/ops", "ssd_scan/ref"):
+                "ssd_scan/kernel", "ssd_scan/ops", "ssd_scan/ref",
+                "alock_tick/kernel", "alock_tick/ops", "alock_tick/ref"):
         assert f"src/repro_torch/kernels/{mod}.py" in names
+    assert "src/repro_torch/core/tla.py" in names
     for src in ("event_loop.cu", "flash_attention.cu",
-                "flash_attention_bwd.cu", "ssd_scan.cu", "flash_common.cuh"):
+                "flash_attention_bwd.cu", "ssd_scan.cu", "flash_common.cuh",
+                "alock_tick.cu"):
         assert (PKG / "csrc" / src).exists()
 
 
@@ -56,6 +59,7 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.experiments.registry\n"
         "import repro_torch.kernels.flash_attention.ops\n"
         "import repro_torch.kernels.ssd_scan.ops\n"
+        "import repro_torch.kernels.alock_tick.ops, repro_torch.core.tla\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -70,7 +74,8 @@ def test_import_leaves_jax_and_reference_unloaded():
 DOCTEST_MODULES = [
     "repro_torch.core.batch", "repro_torch.core.cost_model",
     "repro_torch.experiments", "repro_torch.experiments.registry",
-    "repro_torch.experiments.slo", "repro_torch.kernels.event_loop.ops",
+    "repro_torch.experiments.slo", "repro_torch.kernels.alock_tick.ops",
+    "repro_torch.kernels.event_loop.ops",
     "repro_torch.traffic.metrics", "repro_torch.traffic.stream",
     "repro_torch.workloads", "repro_torch.workloads.lower",
     "repro_torch.workloads.spec",
