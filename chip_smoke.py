@@ -50,7 +50,13 @@ per source, all started together), then prints one JSON object per phase:
               case (causal or not, with or without a window), at the test
               shapes (K3: B=2, H=2, S=256, hd=128; K4/K5: B=2, H=2, S=64,
               hd=16) and the path shape (B=2, H=16, S=2048, hd=128), plus
-              ragged tiles; tolerances in ``ATT_TOL``
+              ragged tiles and an hd whose rows are not 16-byte aligned,
+              both dtypes; tolerances in ``ATT_TOL``
+  tensor_cores  each K4/K5 instantiation (kernel x dtype x padded hd): its
+              route (wgmma for bf16, 3xTF32 mma.sync for f32), registers
+              and spill bytes from this build's ``-Xptxas -v``, and its
+              HGMMA / HMMA count in ``cuobjdump --dump-sass``; fails on a
+              spill or a missing tensor-core instruction
   kernel_check_ssd  K6 against its plain version, and ``ssd_forward``
               against the exact recurrence ``ssd_sequential``, at the
               reference tests' shapes and the path shape (B=2, S=2048, H=16,
@@ -59,7 +65,8 @@ per source, all started together), then prints one JSON object per phase:
               ``scaled_dot_product_attention`` forward and backward (the
               yardstick; nothing in the port calls it), CUDA events over 3
               calls after a warm-up, with each kernel's bound, at the test
-              and path shapes (attention also in bf16)
+              and path shapes (attention also in bf16), and K4 + K5 as one
+              ``flash_attention_bwd`` call against the SDPA backward
   exemplar_path  ``mha_vjp`` forward and ``.backward()`` and ``ssd_forward``
               at the path shape with the default device and backend, launch
               counters set to 0 just before and read just after (K3, K4,
@@ -92,6 +99,8 @@ import hashlib
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -147,6 +156,9 @@ TICK_STEP_OPS = 10
 HBM_BYTES_PER_S = 3.35e12
 ALU32_OPS_PER_S = 67e12        # 32-bit rate outside the tensor cores
 BF16_OPS_PER_S = 989e12        # bf16 products on the tensor cores
+#: f32 products on the tensor cores as 3xTF32 (three TF32 products at
+#: 495e12 each), the least time the card can take for f32 attention work
+TF32X3_OPS_PER_S = 495e12 / 3
 #: the libraries built beside the event loop's (one nvcc each, all at once)
 LIBRARIES = ("flash_attention", "flash_attention_bwd", "ssd_scan",
              "alock_tick")
@@ -230,15 +242,15 @@ def attention_bound(kernel, B, H, S, hd, causal=True, window=None, elem=4):
     drow in; dq out; s, dp, ds k) or K5 (the same in; dk, dv out; s, dp,
     p^T do, ds^T q): a multiply-add is 2 operations, counted over the
     visible pairs only. ``elem`` is the inputs' bytes per element; bf16
-    products are bounded at the tensor cores' rate, f32 at the 32-bit
-    rate outside them."""
+    products are bounded at the tensor cores' bf16 rate, f32 at their
+    3xTF32 rate."""
     n, rows = B * H * S * hd, B * H * S
     pairs = B * H * visible_pairs(S, causal, window)
     nbytes, per_pair = {
         "K3": (4 * n * elem + 4 * rows, 4 * hd),
         "K4": (5 * n * elem + 8 * rows, 6 * hd),
         "K5": (6 * n * elem + 8 * rows, 8 * hd)}[kernel]
-    rate = BF16_OPS_PER_S if elem == 2 else ALU32_OPS_PER_S
+    rate = BF16_OPS_PER_S if elem == 2 else TF32X3_OPS_PER_S
     row = bound_row(nbytes, pairs * per_pair, rate)
     row["shape"] = dict(B=B, H=H, S=S, hd=hd, causal=causal, window=window,
                         dtype="bfloat16" if elem == 2 else "float32")
@@ -334,10 +346,87 @@ def deviation(torch, got, want, tol):
     return err, ok
 
 
+def ptxas_report(log):
+    """function -> registers and spill bytes, from ``nvcc -Xptxas -v``."""
+    rows, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+            rows[cur] = {}
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                rows[cur].update(spill_stores=int(m.group(1)),
+                                 spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                rows[cur]["registers"] = int(m.group(1))
+    return rows
+
+
+def sass_counts(library):
+    """function -> its HGMMA (wgmma) and HMMA (mma.sync) instructions in
+    ``cuobjdump --dump-sass`` of ``library``; None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "--dump-sass", str(library)], check=True,
+                         capture_output=True, text=True).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = counts.setdefault(m.group(1), {"HGMMA": 0, "HMMA": 0})
+        elif cur is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    cur[op] += 1
+    return counts
+
+
+#: the backward's route per input dtype
+BWD_ROUTES = {"bfloat16": "wgmma m64nNk16 (bf16 in, f32 accumulators)",
+              "float32": "mma.sync m16n8k8 3xTF32 (f32 accumulators)"}
+
+
+def tensor_core_report(fkb, _build):
+    """K4's and K5's instantiations (kernel x dtype x padded hd): route,
+    registers and spill bytes (the ptxas report of the library's build)
+    and their tensor-core instructions in its SASS. ``ok`` when every one
+    has no spills and, where ``cuobjdump`` exists, its route's
+    instructions (HGMMA for bf16, HMMA for f32)."""
+    lib = _build.build(_build.CSRC / "flash_attention_bwd.cu",
+                       "flash_attention_bwd", fkb.NVCC_FLAGS)
+    log = _build.BUILD_LOG.get("flash_attention_bwd")
+    regs = ptxas_report(log) if log else {}
+    sass = sass_counts(lib) or {}
+    rows = []
+    for fn in sorted(set(regs) | set(sass)):
+        m = re.search(r"(dq|dkv)_kernel", fn)
+        hd = re.search(r"Li(\d+)E", fn)
+        if not (m and hd):
+            continue
+        dtype = "bfloat16" if "bfloat16" in fn else "float32"
+        rows.append({"kernel": {"dq": "K4", "dkv": "K5"}[m.group(1)],
+                     "dtype": dtype, "hd_pad": int(hd.group(1)),
+                     "route": BWD_ROUTES[dtype], **regs.get(fn, {}),
+                     **sass.get(fn, {})})
+    op = {"bfloat16": "HGMMA", "float32": "HMMA"}
+    ok = len(rows) == 12 and all(
+        r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
+        and (not sass or r.get(op[r["dtype"]], 0) > 0) for r in rows)
+    return {"ptxas_report": bool(log), "sass": bool(sass), "ok": ok,
+            "instances": rows}
+
+
 def float_kernel_phases(torch, dev):
-    """kernel_check_attention, kernel_check_ssd, float_timings and
-    exemplar_path; returns the K3-K6 records of the ``kernels`` line.
+    """kernel_check_attention, tensor_cores, kernel_check_ssd,
+    float_timings and exemplar_path; returns the K3-K6 records of the
+    ``kernels`` line.
     Raises on any disagreement."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import kernel_bwd as fkb
     from repro_torch.kernels.flash_attention.ops import mha_vjp
@@ -407,16 +496,21 @@ def float_kernel_phases(torch, dev):
             for dtype, t in ((f32, tol), (bf16, ATT_TOL["bf16"])):
                 seed += 1
                 bwd_case(name, shp, dtype, t, causal, window, seed)
-    # ragged tiles (S not a multiple of 64, hd not of 16) and the 32-row
-    # tiles of hd > 128
-    for shp in (dict(B=1, H=2, S=96, hd=80), dict(B=1, H=2, S=128, hd=256)):
+    # ragged tiles (S not a multiple of 64, hd not of 16), hd > 128 (the
+    # forward's 32-row tiles; the backward's warpgroups split the columns)
+    # and an hd whose rows are not 16-byte aligned (the backward loads
+    # element by element), in both dtypes
+    for shp in (dict(B=1, H=2, S=96, hd=80), dict(B=1, H=2, S=128, hd=256),
+                dict(B=1, H=2, S=72, hd=18)):
         for causal, window in ((True, None), (False, 40)):
-            seed += 1
-            fwd_case("edge", shp, f32, ATT_TOL["test"], causal, window, seed)
-            bwd_case("edge", shp, f32, ATT_TOL["test"], causal, window, seed)
-    # control: K4 and K5 often agree with their plain versions bit for bit
-    # (the same sequential FMA chains); the comparison must still see a
-    # change of one element of k by 1e-3
+            for dtype, t in ((f32, ATT_TOL["test"]), (bf16, ATT_TOL["bf16"])):
+                seed += 1
+                fwd_case("edge", shp, dtype, t, causal, window, seed)
+                bwd_case("edge", shp, dtype, t, causal, window, seed)
+    # control: K4 and K5 sum in another order than their plain versions
+    # (3xTF32 products on the tensor cores), so they differ by a few f32
+    # ulps; the comparison must also see a change of one element of k by
+    # 1e-3
     q, k, v, do = attention_inputs(torch, dev, 1, 1, 64, 16, f32, 99)
     o, lse = flash_fwd_plain(q, k, v)
     drow = (do.float() * o.float()).sum(-1)
@@ -435,6 +529,11 @@ def float_kernel_phases(torch, dev):
     if not att_ok:
         raise SystemExit("kernel_check_attention: a CUDA kernel and its "
                          "plain version disagree")
+    tc = tensor_core_report(fkb, _build)
+    emit({"phase": "tensor_cores", **tc})
+    if not tc["ok"]:
+        raise SystemExit("tensor_cores: a K4/K5 instantiation spills or "
+                         "lacks its route's tensor-core instructions")
 
     # -- kernel_check_ssd: K6 vs its plain version, ssd_forward vs the
     # exact recurrence ------------------------------------------------------
@@ -512,6 +611,14 @@ def float_kernel_phases(torch, dev):
                                                            drow)),
             plain_ms=plain_ms, library_ms=bwd_ms,
             **attention_bound("K5", B, H, S, hd, elem=elem))
+        # the pair against the one library call that computes all three
+        both = cuda_ms(torch, lambda: fkb.flash_attention_bwd(
+            q, k, v, do, lse, drow))
+        timings[("K4+K5", name)] = dict(
+            ms=both, library_ms=bwd_ms, factor_vs_library=both / bwd_ms,
+            bound_ms=timings[("K4", name)]["bound_ms"]
+            + timings[("K5", name)]["bound_ms"],
+            shape=timings[("K4", name)]["shape"])
     for name, shp in (("test", SSD_TEST), ("path", SSD_PATH)):
         B, S, H, P, N, L = (shp[x] for x in "BSHPNL")
         ops = chunked(*ssd_inputs(torch, dev, B, S, H, P, N, 302), L)
@@ -524,7 +631,9 @@ def float_kernel_phases(torch, dev):
                   "window; library_ms: scaled_dot_product_attention "
                   "forward (K3) and its backward, dq, dk and dv in one "
                   "call (K4, K5); plain_ms of K4 and K5: one "
-                  "flash_bwd_plain call (dq, dk and dv)",
+                  "flash_bwd_plain call (dq, dk and dv); K4+K5: one "
+                  "flash_attention_bwd call (K4 then K5), bound the sum "
+                  "of theirs",
           "rows": [dict(kernel=kern, at=name, **row)
                    for (kern, name), row in timings.items()]})
 
@@ -593,6 +702,11 @@ def float_kernel_phases(torch, dev):
                "library_ms": path["library_ms"], "shape": path["shape"],
                "at_other_shapes": {n: r for (k2, n), r in timings.items()
                                    if k2 == kern and n != "path"}}
+        if kern in ("K4", "K5"):
+            rec["tensor_cores"] = {
+                "routes": BWD_ROUTES,
+                "instances": [r for r in tc["instances"]
+                              if r["kernel"] == kern]}
         records.append(rec)
     return records
 
@@ -856,9 +970,11 @@ def main():
 
     # -- build: every library at once, one nvcc per source -------------------
     t0 = time.perf_counter()
+    from repro_torch.kernels.flash_attention import kernel_bwd
+    flags = {"flash_attention_bwd": kernel_bwd.NVCC_FLAGS}
     libs = _build.build_all(
         [(el_kernel.SOURCE, "event_loop", el_kernel.NVCC_FLAGS)]
-        + [(_build.CSRC / f"{stem}.cu", stem, _build.FLAGS)
+        + [(_build.CSRC / f"{stem}.cu", stem, flags.get(stem, _build.FLAGS))
            for stem in LIBRARIES])
     lib = el_kernel.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,

@@ -29,6 +29,10 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: stem -> wall seconds of the last ``nvcc`` run of this process
 BUILD_SECONDS: dict[str, float] = {}
+#: stem -> what the ``nvcc`` run that built the loaded library printed
+#: (ptxas's report, with ``-Xptxas -v`` among the flags); kept beside the
+#: library as ``<library>.log``
+BUILD_LOG: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -57,7 +61,10 @@ def build(source: Path, stem: str, flags=FLAGS) -> Path:
     tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     out_dir = build_dir()
     lib = out_dir / f"lib{stem}_{tag}.so"
+    log = lib.with_name(lib.name + ".log")
     if lib.exists():
+        if log.exists():
+            BUILD_LOG[stem] = log.read_text()
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"{lib.name}.{os.getpid()}.{id(source)}.tmp"
@@ -70,6 +77,8 @@ def build(source: Path, stem: str, flags=FLAGS) -> Path:
         raise RuntimeError(
             f"building {source.name} failed (exit {proc.returncode}): "
             f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    BUILD_LOG[stem] = proc.stdout + proc.stderr
+    log.write_text(BUILD_LOG[stem])
     os.replace(tmp, lib)        # atomic: concurrent builds agree
     return lib
 
@@ -93,17 +102,17 @@ def load(source: Path, stem: str, setup, flags=FLAGS) -> ctypes.CDLL:
     return _LIBS[stem]
 
 
-def load_library(stem: str, signatures: dict) -> ctypes.CDLL:
-    """``csrc/<stem>.cu`` loaded, with each ``name -> argtypes`` of
-    ``signatures`` set (every entry point returns an int) and the
-    library's ``kernel_error_string``."""
+def load_library(stem: str, signatures: dict, flags=FLAGS) -> ctypes.CDLL:
+    """``csrc/<stem>.cu`` built with ``flags`` and loaded, with each
+    ``name -> argtypes`` of ``signatures`` set (every entry point returns
+    an int) and the library's ``kernel_error_string``."""
     def setup(lib):
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
-    return load(CSRC / f"{stem}.cu", stem, setup)
+    return load(CSRC / f"{stem}.cu", stem, setup, flags)
 
 
 def check_launch(lib, err: int, what: str) -> None:

@@ -7,8 +7,11 @@ _dq_kernel`` and ``::_dkv_kernel``. Both recompute ``p = exp(s - lse)``
 from (q, k, lse), so nothing O(S^2) reaches device memory: K4 runs one
 block per ``(b, h, q tile)`` over the kv tiles, K5 one block per ``(b, h,
 kv tile)`` over the q tiles, each with its accumulators in registers and
-without atomics (see the header of the ``.cu`` file). Built at the first
-launch; importing this module needs neither ``nvcc`` nor a CUDA device.
+without atomics. Every product runs on the tensor cores: ``wgmma`` for
+bf16 inputs (p and ds rounded to bf16 before the second products), 3xTF32
+``mma.sync`` for f32 (see the header of the ``.cu`` file). Built at the
+first launch; importing this module needs neither ``nvcc`` nor a CUDA
+device.
 
 ``flash_dq_kernel`` and ``flash_dkv_kernel`` launch for CUDA tensors or
 raise. ``LAUNCHES_DQ`` and ``LAUNCHES_DKV`` count their launches (one per
@@ -23,7 +26,7 @@ import torch
 from repro_torch.device import device_of, resolve_backend
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.kernel import (
-    DTYPES, block_rows, check_kernel_operands, check_qkv, check_window,
+    DTYPES, check_kernel_operands, check_qkv, check_window,
     window_arg)
 from repro_torch.kernels.flash_attention.ref import flash_bwd_plain
 
@@ -31,6 +34,9 @@ from repro_torch.kernels.flash_attention.ref import flash_bwd_plain
 LAUNCHES_DQ = 0
 LAUNCHES_DKV = 0
 
+#: the library's nvcc flags: the common ones, and ptxas's report of
+#: registers, shared memory and spills per kernel (``_build.BUILD_LOG``)
+NVCC_FLAGS = _build.FLAGS + ("-Xptxas", "-v")
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "flash_dq_launch": [_vp] * 7 + [_ci] * 5 + [_cf, _ci, _vp],
@@ -50,17 +56,42 @@ def reset_launches() -> None:
 
 
 def load():
-    return _build.load_library("flash_attention_bwd", SIGNATURES)
+    return _build.load_library("flash_attention_bwd", SIGNATURES,
+                               NVCC_FLAGS)
+
+
+def _geometry(hd: int, dtype) -> dict:
+    """The tiles of one block at head dimension ``hd`` (mirrors ``Geo`` in
+    the ``.cu``): hd padded to 64, 128 or 256; ``res`` rows resident,
+    ``stream`` rows per stage of the ring; above 128 the two consumer
+    warpgroups share 64 rows and split the columns."""
+    bf16 = dtype == torch.bfloat16
+    hdp = 64 if hd <= 64 else 128 if hd <= 128 else 256
+    return {"res": 128 if hdp <= 128 else 64,
+            "stream": 64 if bf16 or hdp == 64 else 32 if hdp == 128 else 16,
+            "row_bytes": 2 * hdp if bf16 else 4 * (hdp + 4)}
+
+
+def _smem(g: dict, stages: int, dkv: bool) -> int:
+    return (1024 + 2 * g["res"] * g["row_bytes"]
+            + stages * 2 * g["stream"] * g["row_bytes"]
+            + (stages * 2 * g["stream"] * 4 if dkv else 0)
+            + (1 + 2 * stages) * 8)
+
+
+def _stages(hd: int, dtype) -> int:
+    """Stages of the streamed ring: three where they fit in 227 KB."""
+    return 3 if _smem(_geometry(hd, dtype), 3, True) <= 227 * 1024 else 2
 
 
 def smem_bytes(hd: int) -> dict:
-    """Shared memory of one dq and one dk/dv block (mirrors the ``.cu``):
-    four (rows, hd + 1) f32 tiles, plus one (dq) or two (dk, dv)
-    (rows, rows + 1) tiles and, for dk/dv, the rows' lse and drow."""
-    r = block_rows(hd)
-    tiles = 4 * r * (hd + 1)
-    return {"dq": 4 * (tiles + r * (r + 1)),
-            "dkv": 4 * (tiles + 2 * r * (r + 1) + 2 * r)}
+    """Shared memory of one dq and one dk/dv block, the larger of the f32
+    and bf16 routes' (mirrors the ``.cu``): 1,024 bytes of alignment
+    slack, two resident tiles, a ring of ``stages`` x two streamed tiles
+    (dk/dv: with their rows' lse and drow) and the mbarriers."""
+    return {name: max(_smem(_geometry(hd, dt), _stages(hd, dt), dkv)
+                      for dt in (torch.float32, torch.bfloat16))
+            for name, dkv in (("dq", False), ("dkv", True))}
 
 
 def _operands(q, k, v, do, lse, drow, what):

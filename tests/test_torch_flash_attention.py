@@ -217,11 +217,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_shared_memory_fits_a_block():
     """The tiles at every head dimension the kernels take fit the 227 KB
-    one block may use; 64-row tiles up to hd = 128, 32 above."""
+    one block may use. Forward: 64-row tiles up to hd = 128, 32 above.
+    Backward: the f32 route's (the larger) at hd = 128 — 1,024 bytes of
+    alignment slack, two resident 128-row tiles and a ring of 2 stages x
+    two 32-row tiles, rows of 132 floats, K5's lse and drow per stage,
+    five mbarriers."""
     for hd in (16, 64, 128, 256):
         worst = max(fk.smem_bytes(hd), *fkb.smem_bytes(hd).values())
         assert worst <= 227 * 1024, hd
     assert fk.block_rows(128) == 64 and fk.block_rows(256) == 32
     assert fk.smem_bytes(128) == 4 * (3 * 64 * 129 + 64 * 65)
-    assert fkb.smem_bytes(128)["dkv"] == 4 * (4 * 64 * 129 + 2 * 64 * 65
-                                              + 2 * 64)
+    tiles = 1024 + 4 * 132 * (2 * 128 + 2 * 2 * 32) + 5 * 8
+    assert fkb.smem_bytes(128) == {"dq": tiles,
+                                   "dkv": tiles + 4 * 2 * 2 * 32}
