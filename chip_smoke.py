@@ -50,13 +50,14 @@ per source, all started together), then prints one JSON object per phase:
               case (causal or not, with or without a window), at the test
               shapes (K3: B=2, H=2, S=256, hd=128; K4/K5: B=2, H=2, S=64,
               hd=16) and the path shape (B=2, H=16, S=2048, hd=128), plus
-              ragged tiles and an hd whose rows are not 16-byte aligned,
-              both dtypes; tolerances in ``ATT_TOL``
-  tensor_cores  each K4/K5 instantiation (kernel x dtype x padded hd): its
-              route (wgmma for bf16, 3xTF32 mma.sync for f32), registers
-              and spill bytes from this build's ``-Xptxas -v``, and its
-              HGMMA / HMMA count in ``cuobjdump --dump-sass``; fails on a
-              spill or a missing tensor-core instruction
+              ragged tiles, an hd whose rows are not 16-byte aligned and
+              (K3) an S that is a multiple of neither its q tile nor a kv
+              stage, both dtypes; tolerances in ``ATT_TOL``
+  tensor_cores  each K3, K4 and K5 instantiation (kernel x dtype x padded
+              hd, 18 in all): its route (wgmma for bf16, 3xTF32 mma.sync for
+              f32), registers and spill bytes from this build's ``-Xptxas
+              -v``, and its HGMMA / HMMA count in ``cuobjdump --dump-sass``;
+              fails on a spill or a missing tensor-core instruction
   kernel_check_ssd  K6 against its plain version, and ``ssd_forward``
               against the exact recurrence ``ssd_sequential``, at the
               reference tests' shapes and the path shape (B=2, S=2048, H=16,
@@ -386,38 +387,46 @@ def sass_counts(library):
     return counts
 
 
-#: the backward's route per input dtype
-BWD_ROUTES = {"bfloat16": "wgmma m64nNk16 (bf16 in, f32 accumulators)",
+#: the attention kernels' route per input dtype
+ATT_ROUTES = {"bfloat16": "wgmma m64nNk16 (bf16 in, f32 accumulators)",
               "float32": "mma.sync m16n8k8 3xTF32 (f32 accumulators)"}
+#: kernel function -> its name in the ``kernels`` line, per library
+ATT_FUNCTIONS = {"flash_attention": {"flash_fwd_kernel": "K3"},
+                 "flash_attention_bwd": {"dq_kernel": "K4",
+                                         "dkv_kernel": "K5"}}
 
 
-def tensor_core_report(fkb, _build):
-    """K4's and K5's instantiations (kernel x dtype x padded hd): route,
-    registers and spill bytes (the ptxas report of the library's build)
-    and their tensor-core instructions in its SASS. ``ok`` when every one
-    has no spills and, where ``cuobjdump`` exists, its route's
-    instructions (HGMMA for bf16, HMMA for f32)."""
-    lib = _build.build(_build.CSRC / "flash_attention_bwd.cu",
-                       "flash_attention_bwd", fkb.NVCC_FLAGS)
-    log = _build.BUILD_LOG.get("flash_attention_bwd")
-    regs = ptxas_report(log) if log else {}
-    sass = sass_counts(lib) or {}
-    rows = []
-    for fn in sorted(set(regs) | set(sass)):
-        m = re.search(r"(dq|dkv)_kernel", fn)
-        hd = re.search(r"Li(\d+)E", fn)
-        if not (m and hd):
-            continue
-        dtype = "bfloat16" if "bfloat16" in fn else "float32"
-        rows.append({"kernel": {"dq": "K4", "dkv": "K5"}[m.group(1)],
-                     "dtype": dtype, "hd_pad": int(hd.group(1)),
-                     "route": BWD_ROUTES[dtype], **regs.get(fn, {}),
-                     **sass.get(fn, {})})
+def tensor_core_report(fk, fkb, _build):
+    """K3's, K4's and K5's instantiations (kernel x dtype x padded hd, 18):
+    route, registers and spill bytes (the ptxas report of each library's
+    build) and their tensor-core instructions in its SASS. ``ok`` when all
+    18 are there, none spills and, where ``cuobjdump`` exists, each has its
+    route's instructions (HGMMA for bf16, HMMA for f32)."""
+    rows, logs, sass_found = [], True, True
+    for stem, mod in (("flash_attention", fk), ("flash_attention_bwd", fkb)):
+        lib = _build.build(_build.CSRC / f"{stem}.cu", stem, mod.NVCC_FLAGS)
+        log = _build.BUILD_LOG.get(stem)
+        logs = logs and bool(log)
+        regs = ptxas_report(log) if log else {}
+        sass = sass_counts(lib) or {}
+        sass_found = sass_found and bool(sass)
+        names = ATT_FUNCTIONS[stem]
+        for fn in sorted(set(regs) | set(sass)):
+            # a mangled template name: its length, the name, then "I"
+            kern = [k for n, k in names.items() if f"{len(n)}{n}I" in fn]
+            hd = re.search(r"Li(\d+)E", fn)
+            if not (kern and hd):
+                continue
+            dtype = "bfloat16" if "bfloat16" in fn else "float32"
+            rows.append({"kernel": kern[0], "dtype": dtype,
+                         "hd_pad": int(hd.group(1)),
+                         "route": ATT_ROUTES[dtype], **regs.get(fn, {}),
+                         **sass.get(fn, {})})
     op = {"bfloat16": "HGMMA", "float32": "HMMA"}
-    ok = len(rows) == 12 and all(
+    ok = len(rows) == 18 and all(
         r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
-        and (not sass or r.get(op[r["dtype"]], 0) > 0) for r in rows)
-    return {"ptxas_report": bool(log), "sass": bool(sass), "ok": ok,
+        and (not sass_found or r.get(op[r["dtype"]], 0) > 0) for r in rows)
+    return {"ptxas_report": logs, "sass": sass_found, "ok": ok,
             "instances": rows}
 
 
@@ -507,6 +516,14 @@ def float_kernel_phases(torch, dev):
                 seed += 1
                 fwd_case("edge", shp, dtype, t, causal, window, seed)
                 bwd_case("edge", shp, dtype, t, causal, window, seed)
+    # K3 at an S that is a multiple of neither its 128-row q tile nor a kv
+    # stage (128 rows bf16, 64 f32): a part-filled last stage and a q tile
+    # whose second warpgroup holds 8 rows
+    for shp in (dict(B=1, H=2, S=200, hd=64), dict(B=1, H=2, S=200, hd=128)):
+        for causal, window in ((True, None), (False, 40)):
+            for dtype, t in ((f32, ATT_TOL["test"]), (bf16, ATT_TOL["bf16"])):
+                seed += 1
+                fwd_case("edge", shp, dtype, t, causal, window, seed)
     # control: K4 and K5 sum in another order than their plain versions
     # (3xTF32 products on the tensor cores), so they differ by a few f32
     # ulps; the comparison must also see a change of one element of k by
@@ -529,11 +546,12 @@ def float_kernel_phases(torch, dev):
     if not att_ok:
         raise SystemExit("kernel_check_attention: a CUDA kernel and its "
                          "plain version disagree")
-    tc = tensor_core_report(fkb, _build)
+    tc = tensor_core_report(fk, fkb, _build)
     emit({"phase": "tensor_cores", **tc})
     if not tc["ok"]:
-        raise SystemExit("tensor_cores: a K4/K5 instantiation spills or "
-                         "lacks its route's tensor-core instructions")
+        raise SystemExit("tensor_cores: a K3/K4/K5 instantiation is "
+                         "missing, spills or lacks its route's tensor-core "
+                         "instructions")
 
     # -- kernel_check_ssd: K6 vs its plain version, ssd_forward vs the
     # exact recurrence ------------------------------------------------------
@@ -702,9 +720,9 @@ def float_kernel_phases(torch, dev):
                "library_ms": path["library_ms"], "shape": path["shape"],
                "at_other_shapes": {n: r for (k2, n), r in timings.items()
                                    if k2 == kern and n != "path"}}
-        if kern in ("K4", "K5"):
+        if kern in ("K3", "K4", "K5"):
             rec["tensor_cores"] = {
-                "routes": BWD_ROUTES,
+                "routes": ATT_ROUTES,
                 "instances": [r for r in tc["instances"]
                               if r["kernel"] == kern]}
         records.append(rec)

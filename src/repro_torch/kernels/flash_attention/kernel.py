@@ -2,13 +2,16 @@
 (``csrc/flash_attention.cu``) and ``flash_attention``.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention/kernel.py::
-_flash_kernel``. The kernel is bound by operations (f32 CUDA cores); its
-design keeps every ``(S, S)`` quantity inside the block: one block per
-``(b, h, 64-row q tile)``, k and v tiles staged in shared memory, each
-row's running max, sum and accumulator in registers (see the header of the
-``.cu`` file). It is built by ``nvcc`` at the first launch
-(``kernels/_build``); importing this module needs neither ``nvcc`` nor a
-CUDA device.
+_flash_kernel``. The kernel is bound by operations and runs both products
+on the tensor cores: ``wgmma`` for bf16 inputs (p rounded to bf16 before
+``p v``), 3xTF32 ``mma.sync`` for f32, with the backward's machinery
+(``csrc/flash_hopper.cuh``). Every ``(S, S)`` quantity stays inside the
+CTA: one CTA per ``(b, h, 128-row q tile)`` (64 rows above hd = 128), a
+producer warpgroup streaming k and v tiles through a ring of shared-memory
+stages, each row's running max, sum and accumulator in the consumers'
+registers (see the header of the ``.cu`` file). It is built by ``nvcc`` at
+the first launch (``kernels/_build``); importing this module needs neither
+``nvcc`` nor a CUDA device.
 
 ``flash_fwd_kernel`` launches the kernel for CUDA tensors or raises — no
 path leads from it to the plain version. ``LAUNCHES`` counts its launches
@@ -32,6 +35,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the largest head dimension the kernel's tiles take
 MAX_HD = 256
 
+#: the library's nvcc flags: the common ones, and ptxas's report of
+#: registers, shared memory and spills per kernel (``_build.BUILD_LOG``)
+NVCC_FLAGS = _build.FLAGS + ("-Xptxas", "-v")
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "flash_fwd_launch": [_vp] * 5 + [_ci] * 5 + [_cf, _ci, _vp],
@@ -49,20 +55,43 @@ def reset_launches() -> None:
 
 
 def load():
-    return _build.load_library("flash_attention", SIGNATURES)
+    return _build.load_library("flash_attention", SIGNATURES, NVCC_FLAGS)
 
 
 def block_rows(hd: int) -> int:
-    """Rows of the kernels' q and kv tiles at head dimension ``hd``."""
-    return 64 if hd <= 128 else 32
+    """Rows of one CTA's q tile at head dimension ``hd``: 128, two
+    consumer warpgroups of 64; above 128 the two share 64 rows and split
+    the output columns."""
+    return 128 if hd <= 128 else 64
+
+
+def _geometry(hd: int, dtype) -> dict:
+    """The tiles of one CTA (mirrors ``FwdGeo`` in the ``.cu``): hd padded
+    to 64, 128 or 256, the resident q tile, ``stream`` kv rows a stage."""
+    bf16 = dtype == torch.bfloat16
+    hdp = 64 if hd <= 64 else 128 if hd <= 128 else 256
+    if bf16:
+        stream = 64 if hdp == 256 else 128
+    else:
+        stream = 32 if hdp == 256 else 64
+    return {"res": block_rows(hd), "stream": stream,
+            "row_bytes": 2 * hdp if bf16 else 4 * (hdp + 4)}
+
+
+def _smem(g: dict, stages: int) -> int:
+    return (1024 + g["res"] * g["row_bytes"]
+            + stages * 2 * g["stream"] * g["row_bytes"] + (1 + 2 * stages) * 8)
 
 
 def smem_bytes(hd: int) -> int:
-    """Shared memory of one forward block (mirrors ``smem_bytes`` in the
-    ``.cu``): q, k, v tiles of (rows, hd + 1) and a (rows, rows + 1)
-    probability tile, f32."""
-    r = block_rows(hd)
-    return 4 * (3 * r * (hd + 1) + r * (r + 1))
+    """Shared memory of one forward CTA, the larger of the f32 and bf16
+    routes' (mirrors the ``.cu``): 1,024 bytes of alignment slack, the q
+    tile, a ring of three stages (two where three do not fit in 227 KB) of
+    a k and a v tile, and the mbarriers."""
+    def one(g):
+        return _smem(g, 3 if _smem(g, 3) <= 227 * 1024 else 2)
+    return max(one(_geometry(hd, dt)) for dt in (torch.float32,
+                                                   torch.bfloat16))
 
 
 def check_kernel_operands(what, hd, **tensors):
@@ -139,8 +168,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     or ``"kernel"``), CPU tensors take the plain version (``"auto"`` or
     ``"plain"``); ``"kernel"`` on CPU tensors raises. ``bq``/``bk`` are
     accepted and checked as the reference does; the CUDA kernel chooses
-    its own tile (``block_rows``): the TPU's 256 x 256 f32 k and v tiles
-    would need 256 KB of shared memory, more than a block may use.
+    its own tiles (``block_rows`` q rows a CTA, 64 kv rows a stage): the
+    TPU's 256 x 256 f32 k and v tiles would need 256 KB of shared memory,
+    more than a CTA may use.
     """
     check_qkv(q, k, v, bq, bk)
     check_window(window)

@@ -217,16 +217,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_shared_memory_fits_a_block():
     """The tiles at every head dimension the kernels take fit the 227 KB
-    one block may use. Forward: 64-row tiles up to hd = 128, 32 above.
-    Backward: the f32 route's (the larger) at hd = 128 — 1,024 bytes of
-    alignment slack, two resident 128-row tiles and a ring of 2 stages x
-    two 32-row tiles, rows of 132 floats, K5's lse and drow per stage,
-    five mbarriers."""
+    one block may use. Forward: a 128-row q tile up to hd = 128, 64 above;
+    at hd = 128 the bf16 route's (the larger) — 1,024 bytes of alignment
+    slack, the resident 128-row q tile and a ring of 3 stages x a 128-row k
+    and v tile, rows of 256 bytes (128 bf16, swizzled), seven mbarriers.
+    Backward: the f32
+    route's at hd = 128 — the slack, two resident 128-row tiles and a ring
+    of 2 stages x two 32-row tiles, rows of 132 floats, K5's lse and drow
+    per stage, five mbarriers."""
     for hd in (16, 64, 128, 256):
         worst = max(fk.smem_bytes(hd), *fkb.smem_bytes(hd).values())
         assert worst <= 227 * 1024, hd
-    assert fk.block_rows(128) == 64 and fk.block_rows(256) == 32
-    assert fk.smem_bytes(128) == 4 * (3 * 64 * 129 + 64 * 65)
+    assert fk.block_rows(128) == 128 and fk.block_rows(256) == 64
+    assert fk.smem_bytes(128) == 1024 + 256 * (128 + 3 * 2 * 128) + 7 * 8
     tiles = 1024 + 4 * 132 * (2 * 128 + 2 * 2 * 32) + 5 * 8
     assert fkb.smem_bytes(128) == {"dq": tiles,
                                    "dkv": tiles + 4 * 2 * 2 * 32}

@@ -1,17 +1,21 @@
-"""The numerics K4 and K5 use on the tensor cores, modelled in plain torch
-and held against the JAX reference on the CPU.
+"""The numerics K3, K4 and K5 use on the tensor cores, modelled in plain
+torch and held against the JAX reference on the CPU.
 
 The CUDA kernels run only on the card; what their arithmetic does to the
-result can be sized here. ``bwd_model`` repeats their roundings: f32
-products as 3xTF32 (each operand split into a big and a small TF32 half,
-both rounded to nearest, ties away, and the three products small*big +
-big*small + big*big summed in f32); bf16 inputs multiplied exactly in f32
-with p and ds rounded to bf16 before the second products (dq = ds k,
-dk = ds^T q, dv = p^T do), as ``wgmma`` takes them. The model must meet
-the reference tests' tolerances (f32 2e-5, bf16 2e-2) against the
-reference's interpret-mode backward, and the tolerances at a wider head
-(1e-4, 2e-2) against ``flash_bwd_plain``; one TF32 product without the
-split must not meet 2e-5 (the negative control).
+result can be sized here. ``bwd_model`` repeats the backward's roundings:
+f32 products as 3xTF32 (each operand split into a big and a small TF32
+half, both rounded to nearest, ties away, and the three products
+small*big + big*small + big*big summed in f32); bf16 inputs multiplied
+exactly in f32 with p and ds rounded to bf16 before the second products
+(dq = ds k, dk = ds^T q, dv = p^T do), as ``wgmma`` takes them.
+``fwd_model`` repeats the forward's: the online softmax over the kernel's
+kv stages (128 keys in bf16, 64 in f32), s = (q k^T) scale with q k^T as 3xTF32 (f32) or exact in
+f32 (bf16), p v as 3xTF32 (f32) or with p rounded to bf16 (bf16), l summing
+the f32 p. Each model must meet the reference tests' tolerances (f32
+2e-5, bf16 2e-2) against the reference's interpret-mode kernels, and the
+tolerances at a wider head (1e-4, 2e-2) against the plain versions; one
+TF32 product without the split must not meet 2e-5 (the negative
+controls).
 """
 import numpy as np
 import pytest
@@ -64,6 +68,36 @@ def bwd_model(q, k, v, do, lse, drow, *, causal, window, mm=None):
     dk = mm(ds.transpose(-1, -2), qf)
     dv = mm(p.transpose(-1, -2), dof)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def fwd_model(q, k, v, *, causal, window, mm=None):
+    """(o, lse) with K3's roundings, over kv tiles of the kernel's stage
+    rows (hd <= 128: 128 keys in bf16, 64 in f32). ``mm`` is the f32
+    product (3xTF32 by default); bf16 inputs use exact f32 products."""
+    bf16 = q.dtype == torch.bfloat16
+    if mm is None:
+        mm = torch.matmul if bf16 else mm_3xtf32
+    blk = 128 if bf16 else 64
+    S, hd = q.shape[-2:]
+    scale = hd ** -0.5
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    ok = allowed(S, causal, window, q.device)
+    m = torch.full(q.shape[:-1], NEG_INF)
+    l = torch.zeros(q.shape[:-1])
+    acc = torch.zeros(qf.shape)
+    for k0 in range(0, S, blk):
+        kt, vt = kf[..., k0:k0 + blk, :], vf[..., k0:k0 + blk, :]
+        s = (mm(qf, kt.transpose(-1, -2)) * scale).masked_fill(
+            ~ok[:, k0:k0 + blk], NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + mm(p.bfloat16().float() if bf16
+                                         else p, vt)
+        m = m_new
+    lc = l.clamp_min(1e-30)
+    return (acc / lc[..., None]).to(q.dtype), m + torch.log(lc)
 
 
 def _inputs(seed, shape, dtype, causal, window):
@@ -141,3 +175,48 @@ def test_tf32_rounding_is_to_nearest_ties_away():
     assert torch.equal(tf32_rna(x), want)
     small = tf32_rna(x - tf32_rna(x))
     assert torch.equal(tf32_rna(small), small)
+
+
+def _reference_fwd(xs):
+    """The reference's interpret-mode forward with lse on q, k, v (and
+    the mask in ``kw``), as f32 torch tensors."""
+    def run(q, k, v, **kw):
+        dt = getattr(R.jnp, str(q.dtype).split(".")[1])
+        args = [R.jnp.asarray(t.float().numpy()).astype(dt)
+                for t in (q, k, v)]
+        out = R.ref_flash_kernel.flash_attention(
+            *args, bq=32, bk=32, interpret=True, return_lse=True, **kw)
+        return [torch.from_numpy(np.array(o.astype(R.jnp.float32)))
+                for o in out]
+    return lambda **kw: run(*xs[:3], **kw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_fwd_model_matches_reference_fwd(causal, window, dtype):
+    """o and lse at the reference tests' shape (B=2, H=2, S=128, hd=16):
+    one or two of the kernel's kv stages, four of the reference's tiles."""
+    xs = _inputs(41, (2, 2, 128, 16), dtype, causal, window)
+    _close(fwd_model(*xs[:3], causal=causal, window=window),
+           _reference_fwd(xs)(causal=causal, window=window), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 2e-2)])
+def test_fwd_model_matches_plain_at_a_wide_head(dtype, tol):
+    """One head at S = 512, hd = 128, causal: o and lse against
+    ``flash_fwd_plain`` at the card's tolerances."""
+    xs = _inputs(43, (1, 1, 512, 128), dtype, True, None)
+    _close(fwd_model(*xs[:3], causal=True, window=None),
+           flash_fwd_plain(*xs[:3], causal=True), tol)
+
+
+def test_fwd_one_tf32_product_misses_the_f32_tolerance():
+    """The forward's negative control: o through single TF32 products
+    misses 2e-5, so the f32 route needs 3xTF32 there too."""
+    xs = _inputs(41, (2, 2, 128, 16), "float32", True, None)
+    want = _reference_fwd(xs)(causal=True, window=None)[:1]
+    split = _max_err(fwd_model(*xs[:3], causal=True, window=None)[:1], want)
+    plain_tf32 = _max_err(fwd_model(*xs[:3], causal=True, window=None,
+                                    mm=mm_tf32)[:1], want)
+    assert split <= TOL["float32"] < plain_tf32

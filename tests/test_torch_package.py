@@ -39,7 +39,7 @@ def test_package_files_exist():
     assert "src/repro_torch/core/tla.py" in names
     for src in ("event_loop.cu", "flash_attention.cu",
                 "flash_attention_bwd.cu", "ssd_scan.cu", "flash_common.cuh",
-                "alock_tick.cu"):
+                "flash_hopper.cuh", "alock_tick.cu"):
         assert (PKG / "csrc" / src).exists()
 
 
