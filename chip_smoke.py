@@ -23,24 +23,43 @@ per source, all started together), then prints one JSON object per phase:
   kernel_check  the CUDA kernel equals its plain PyTorch version on the card
               (``torch.equal`` on all six outputs; tolerance zero) for every
               algorithm, single-phase and phased (churn + fail-slow
-              multipliers), at T = 16; then at the main path's widest bucket
-              shape (T = 160, N = 20, K = 1000, B = 96) with the event count
-              cut for the plain version's sake, where both are timed
+              multipliers), at T = 16, 4 seeds a workload, launched as the
+              planner chooses and with 1 and 3 replicas per block (a tail
+              block of 1 or 2), the C and Python shared-memory tables
+              compared; then at the main path's widest bucket shape (T =
+              160, N = 20, K = 1000, B = 96) with the event count cut for
+              the plain version's sake, where both are timed (and 1 and 5
+              replicas per block checked)
   kernel_check_open  the same for the open loop (all ten outputs): every
               algorithm x {open-loop-ramp at 8 req/us with queue bound 32,
               burst-storm's token policy} at the registry's topology (4 x 4
-              threads, 16 locks, R = 256), 1,500 events; then the alock
-              open-loop-ramp bucket (B = 192), timed, events cut for the
-              plain version
+              threads, 16 locks, R = 256), 1,500 events, which path each
+              replica took (``diag``); a negative control of the pointer
+              path (one replica's arrival times fall once: it must take the
+              exact scans and still agree); replicas that fall idle for
+              good before a node rejoins (the loop stops, the rejoin bump
+              still applies); then the alock open-loop-ramp bucket (B =
+              192), timed, events cut for the plain version
+  k1_path_shapes  K1 at both path shapes at full depth: time, shared-memory
+              plan, the C and Python tables, the bytes, operations and
+              latency bounds and which binds, the events the open loop's
+              data needs (``diag``)
   golden      the kernel's outputs for six full-width replicas equal the
               digests the JAX reference wrote to
               ``tests/golden/torch_fig5_full.json``
   golden_open the kernel's open-loop outputs at full depth (150,000 events)
               equal ``tests/golden/torch_open_loop_full.json``
+  golden_algs the registry's read-heavy (alock-rw), rack-locality (hlock),
+              limping-node (node_mult) and node-churn (phases) workloads,
+              seeds 0 and 1, 150,000 events, one launch per algorithm,
+              equal ``tests/golden/torch_algs_full.json``
   main_path   the paper's Fig. 5 grid (89 labelled workloads, 32 seeds,
               150,000 events each) through ``Experiment.run()`` with the
-              default device and backend; launch counters are set to 0 just
-              before and read just after
+              default device and backend (every bucket issued before any
+              is forced); launch counters are set to 0 just before and read
+              just after; then the same grid one bucket at a time
+              (``batch.IN_FLIGHT_SHARE = 0``), every replica's outputs
+              compared by digest
   main_path_open  ``run_scenario("open-loop-ramp")`` and ``("burst-storm")``
               at 32 seeds x 150,000 events with the default device and
               backend, counters set to 0 just before each and read just
@@ -91,7 +110,8 @@ per source, all started together), then prints one JSON object per phase:
               per second, peak device memory, the two statistics
   kernels     the per-kernel record (K1 closed and open, K2, K3-K6): launches
               on each main path, largest deviation from the plain version,
-              times, the roofline bound and the library call's time
+              times, the roofline bound and the library call's time (K1:
+              also its latency bound and which of the three binds)
 
 and, last, the card's ``nvidia-smi`` line and ``{"ok": true, "device":
 {...}}``. Any phase that fails raises, and the run exits non-zero.
@@ -171,13 +191,33 @@ STEP_OPS = 64
 #: the transition. Arrival times are sorted and dispatch is FIFO in slot
 #: order, so the next arrival, the arrival count and the queue head are
 #: each a pointer that only moves forward: a test and an advance each (6),
-#: plus the live / idle / step_ok decision (4). The kernel's scans of all
-#: R slots on every event are its own choice, not work the inputs need.
+#: plus the live / idle / step_ok decision (4).
 OPEN_EVENT_OPS = 10
 #: scalar operations per request, once per run: ingestion (token and
 #: queue-bound test, status) 5, dispatch (status, bind, wait stamp) 4,
 #: departure (sojourn stamp, status) 3
 REQ_OPS = 12
+# K1's latency term: the dependent chain of one event, priced with one
+# SM's latencies as scripts/torch_sm_latency.py measured them on an NVIDIA
+# H100 80GB HBM3 at 700.00 W (the lower of two runs; PERF.md, PR 17)
+#: cycles from an indexed shared-memory load to its use (x = s[x])
+SMEM_LOAD_CYCLES = 28.645
+#: cycles of one dependent 32-bit integer operation
+INT_OP_CYCLES = 4.716
+#: the SM clock the bound assumes: the card's maximum (nvidia-smi
+#: clocks.max.sm, 1980 MHz; 1982-1995 MHz measured under the chain)
+SM_CLOCK_HZ = 1.98e9
+#: the minimal chain of one event: the argmin reads the ready clocks (a
+#: load) and takes their minimum (at least one operation), the selected
+#: thread's state is read (a load), then the lock or peer word it names (a
+#: load), the new clock is computed (an operation) and written where the
+#: next event's argmin reads it (that read is the next event's first load)
+EVENT_CHAIN_CYCLES = 3 * SMEM_LOAD_CYCLES + 2 * INT_OP_CYCLES
+#: what the card holds at once: 132 SMs of 228 KB shared memory and 64
+#: resident warps each (one warp per replica)
+N_SM = 132
+SM_SMEM_BYTES = 228 * 1024
+SM_WARPS = 64
 
 
 def emit(obj):
@@ -192,16 +232,34 @@ def nvidia_smi_line():
     return out.splitlines()[0]
 
 
-def k1_bound(wl, streams, T, K, n_events, lat_samples=1 << 15):
-    """(bytes bound ms, operations bound ms) of one K1 launch over the
-    operands ``wl`` (tensors on the card) and draw ``streams``: every input
-    read once and every output written once over the HBM rate; per event
-    and replica 2 operations per thread for the masked argmin, STEP_OPS for
-    the transition and, open loop, OPEN_EVENT_OPS, plus REQ_OPS per request
-    slot once per replica, over the 32-bit rate. The transition is charged
-    on every event, also on the open loop's no-op events, which skip it."""
-    B, R = int(wl.seed.shape[0]), int(wl.arr_fix.shape[-1])
-    in_bytes = sum(s.numel() * s.element_size() for s in streams) + sum(
+def k1_bound(alg, wl, streams, T, N, K, n_events, events=None,
+             lat_samples=1 << 15):
+    """Three least times of one K1 launch over the operands ``wl``
+    (tensors on the card) and draw ``streams``, in ms, as a dict.
+
+    ``events`` (per replica; default ``n_events`` each) is the events the
+    data needs: an open-loop replica whose threads have all fallen idle
+    with no admitted request left needs no further event (the kernel's
+    ``diag`` reports where that happens). ``bytes``: every input read once
+    (the draw streams for those events) and every output written once,
+    over the HBM rate. ``operations``: per event 2 operations per thread
+    for the masked argmin, STEP_OPS for the transition and, open loop,
+    OPEN_EVENT_OPS, plus REQ_OPS per request slot, over the 32-bit rate.
+    ``latency``: per replica its events x EVENT_CHAIN_CYCLES at
+    SM_CLOCK_HZ; replicas run side by side up to what the card holds at
+    once (shared memory and resident warps) and in waves beyond it, so the
+    longest replica's chain, or the replica-chains over that capacity when
+    that is longer."""
+    import torch
+    from repro_torch.kernels.event_loop.smem_plan import (region_bytes,
+                                                          smem_bytes)
+    B, R, P = (int(wl.seed.shape[0]), int(wl.arr_fix.shape[-1]),
+               int(wl.edges.shape[1]))
+    ev = (torch.full((B,), n_events, dtype=torch.float64) if events is None
+          else torch.as_tensor(events).double().cpu())
+    total_ev = float(ev.sum())
+    draw_bytes = sum(s.element_size() for s in streams) * total_ev
+    in_bytes = draw_bytes + sum(
         t.numel() * t.element_size() for t in (
             wl.edges, wl.think_ns, wl.locality, wl.active, wl.b_init,
             wl.cost_rows, wl.node_mult)) + 4 * (T + K)
@@ -209,11 +267,33 @@ def k1_bound(wl, streams, T, K, n_events, lat_samples=1 << 15):
     if R:
         in_bytes += B * R * (8 + 3 * 4)      # arr, tok, tokcum, qcap
         out_bytes += B * R * (8 + 8 + 4)     # wq, soj, rstat
-    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    ops = (B * n_events * (2 * T + STEP_OPS + (OPEN_EVENT_OPS if R else 0))
+    ops = (total_ev * (2 * T + STEP_OPS + (OPEN_EVENT_OPS if R else 0))
            + B * R * REQ_OPS)
-    ops_ms = ops / ALU32_OPS_PER_S * 1e3
-    return bytes_ms, ops_ms
+    capacity = N_SM * min(SM_WARPS, SM_SMEM_BYTES // region_bytes(
+        smem_bytes(alg, T, N, K, P, R)))
+    chain_events = max(float(ev.max()), total_ev / capacity)
+    return {"bytes_ms": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
+            "operations_ms": ops / ALU32_OPS_PER_S * 1e3,
+            "latency_ms": chain_events * EVENT_CHAIN_CYCLES / SM_CLOCK_HZ
+            * 1e3,
+            "events": total_ev, "resident_replicas": capacity}
+
+
+def k1_row(b):
+    """A kernels-phase row's bound fields from ``k1_bound``'s dict:
+    ``bound_ms`` / ``bound_by`` the larger of bytes and operations, and
+    beside them the latency term and which of the three binds."""
+    terms = {"bytes": b["bytes_ms"], "operations": b["operations_ms"],
+             "latency": b["latency_ms"]}
+    two = max(("bytes", "operations"), key=terms.get)
+    return {"bound_ms": terms[two], "bound_by": two,
+            "bound_bytes_ms": b["bytes_ms"],
+            "bound_operations_ms": b["operations_ms"],
+            "bound_latency_ms": b["latency_ms"],
+            "bound_with_latency_ms": max(terms.values()),
+            "binds": max(terms, key=terms.get),
+            "bound_events": b["events"],
+            "resident_replicas": b["resident_replicas"]}
 
 
 def bound_row(nbytes, nops, ops_per_s):
@@ -963,6 +1043,7 @@ def main():
     from repro_torch.experiments import (Experiment, run_scenario,
                                          scenario_workloads)
     from repro_torch.kernels.event_loop import kernel as el_kernel
+    from repro_torch.kernels.event_loop import smem_plan
     from repro_torch.kernels.event_loop.ops import (precompute_draws,
                                                     precompute_plan,
                                                     run_events)
@@ -1094,12 +1175,31 @@ def main():
                          "cpu and cuda")
 
     # -- kernel_check: CUDA kernel vs its plain version, on the card --------
-    def compare(alg, T, N, K, n_events, wl, time_it=False):
+    def direct(alg, T, N, K, n_events, wl, streams, plan, warps=None):
+        """The kernel through its wrapper with an explicit replicas-per-block
+        request; returns its outputs and its ``diag``."""
+        tn, ln, _ = topology(alg, N, T // N, K)
+        B = int(wl.seed.shape[0])
+        diag = torch.zeros((B, 2), dtype=torch.int32, device=dev)
+        out = el_kernel.run_events_kernel(
+            alg, T, N, K, n_events, wl, torch.from_numpy(tn).to(dev),
+            torch.from_numpy(ln).to(dev), streams, lat_samples=1 << 15,
+            plan=plan, arr=arrival_times_i64(plan.gaps) if plan else None,
+            warps=warps, diag=diag)
+        return out, diag
+
+    def compare(alg, T, N, K, n_events, wl, time_it=False, warps=(),
+                plan_edit=None):
+        """Kernel (the planned launch, then each of ``warps`` replicas per
+        block) against the plain version on the same draws and plan;
+        ``plan_edit`` rewrites the arrival plan first."""
         tn, ln, _ = topology(alg, N, T // N, K)
         streams = precompute_draws(wl.seed, wl.edges, wl.zcdf, n_events, N,
                                    K // N, rw=alg == "alock-rw", device=dev)
         plan = (precompute_plan(wl, n_events, device=dev)
                 if wl.arr_fix.shape[-1] else None)
+        if plan_edit is not None:
+            plan = plan_edit(plan)
         kw = dict(device=dev, streams=streams, plan=plan)
         out_k = run_events(alg, T, N, K, n_events, wl, tn, ln,
                            backend="kernel", **kw)
@@ -1112,11 +1212,20 @@ def main():
         equal = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
         err = max(float((a.double() - b.double()).abs().max())
                   for a, b in zip(out_k, out_p))
+        by_warps, diag = {}, None
+        for w in warps:
+            out_w, diag = direct(alg, T, N, K, n_events, wl, streams, plan, w)
+            by_warps[w] = {"equal": all(torch.equal(a, b) for a, b in
+                                        zip(out_w, out_p)),
+                           **smem_plan.last_plan().as_dict()}
+            equal = equal and by_warps[w]["equal"]
         ms = None
         if time_it:
             ms = time_kernel(alg, T, N, K, n_events, wl, tn, ln, streams,
                              plan)
-        return equal, err, ms, plain_ms, int(out_k[0].sum())
+        return {"equal": equal, "err": err, "ms": ms, "plain_ms": plain_ms,
+                "ops": int(out_k[0].sum()), "warps": by_warps,
+                "diag": diag}
 
     def time_kernel(alg, T, N, K, n_events, wl, tn, ln, streams, plan=None,
                     reps=3):
@@ -1130,9 +1239,23 @@ def main():
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / reps
 
+    def tables(alg, T, N, K, P, R, warps):
+        """The C library's and the planner's shared-memory tables: one
+        replica's region and one block of ``warps`` regions."""
+        a = el_kernel.ALGS.index(alg)
+        plan = smem_plan.plan_smem(alg, warps, T, N, K, P, R,
+                                             warps=warps)
+        c = (lib.event_loop_smem_bytes(a, T, N, K, P, R),
+             lib.event_loop_block_bytes(a, T, N, K, P, R, warps))
+        return {"smem_bytes": c[0], "block_bytes": c[1],
+                "smem_table_agrees": c == (el_kernel.smem_bytes(
+                    alg, T, N, K, P, R), plan.total_bytes)}
+
     checks = []
     max_err = 0.0
-    N_S, TPN_S, K_S, EV_S = 4, 4, 16, 2000
+    # 4 seeds a workload: 4 or 8 replicas, so 3 replicas per block leave a
+    # tail block of 1 or 2
+    N_S, TPN_S, K_S, EV_S, SEEDS_S, W_S = 4, 4, 16, 2000, 4, (1, 3)
     for alg in el_kernel.ALGS:
         extra = {}
         if alg == "hlock":
@@ -1152,18 +1275,17 @@ def main():
                           cost="congested-nic")))],
         }
         for name, ws in cases.items():
-            wl = batched(ws, EV_S)
+            wl = batched(ws, EV_S, SEEDS_S)
             P = wl.edges.shape[1]
-            smem_c = lib.event_loop_smem_bytes(
-                el_kernel.ALGS.index(alg), N_S * TPN_S, N_S, K_S, P, 0)
-            smem_py = el_kernel.smem_bytes(alg, N_S * TPN_S, N_S, K_S, P)
-            equal, err, _, plain_ms, ops = compare(
-                alg, N_S * TPN_S, N_S, K_S, EV_S, wl)
-            max_err = max(max_err, err)
-            checks.append({"alg": alg, "case": name, "equal": equal,
-                           "ops": ops, "plain_ms": plain_ms,
-                           "smem_bytes": smem_c,
-                           "smem_table_agrees": smem_c == smem_py})
+            c = compare(alg, N_S * TPN_S, N_S, K_S, EV_S, wl, warps=W_S)
+            max_err = max(max_err, c["err"])
+            checks.append({"alg": alg, "case": name, "equal": c["equal"],
+                           "B": int(wl.seed.shape[0]), "ops": c["ops"],
+                           "plain_ms": c["plain_ms"],
+                           "warps": {w: {k: v[k] for k in (
+                               "equal", "warps", "blocks", "tail_replicas")}
+                               for w, v in c["warps"].items()},
+                           **tables(alg, N_S * TPN_S, N_S, K_S, P, 0, 3)})
     # the main path's widest bucket: alock, 20 nodes x 8 threads, 1000
     # locks, 3 localities x 32 seeds; event count cut for the plain version
     WIDE = dict(alg="alock", T=160, N=20, K=1000)
@@ -1171,15 +1293,19 @@ def main():
     wide_ws = [Workload("alock", 20, TPN, 1000, locality=l)
                for l in LOCALITY]
     wl_cut = batched(wide_ws, EV_CUT, N_SEEDS)
-    equal, err, ms_cut, plain_ms_cut, ops = compare(
-        "alock", 160, 20, 1000, EV_CUT, wl_cut, time_it=True)
-    max_err = max(max_err, err)
-    if ops <= 0:
+    c = compare("alock", 160, 20, 1000, EV_CUT, wl_cut, time_it=True,
+                warps=(1, 5))
+    ms_cut, plain_ms_cut = c["ms"], c["plain_ms"]
+    max_err = max(max_err, c["err"])
+    if c["ops"] <= 0:
         raise SystemExit("kernel_check: the cut run completed no operation")
     checks.append({"alg": "alock", "case": "main_path_width_cut_events",
-                   "equal": equal, "ops": ops, "B": int(wl_cut.seed.shape[0]),
-                   "n_events": EV_CUT, "ms": ms_cut,
-                   "plain_ms": plain_ms_cut})
+                   "equal": c["equal"], "ops": c["ops"],
+                   "B": int(wl_cut.seed.shape[0]), "n_events": EV_CUT,
+                   "ms": ms_cut, "plain_ms": plain_ms_cut,
+                   "warps": {w: {k: v[k] for k in (
+                       "equal", "warps", "blocks", "tail_replicas")}
+                       for w, v in c["warps"].items()}})
     emit({"phase": "kernel_check", "tolerance": 0,
           "all_equal": all(c["equal"] for c in checks), "cases": checks})
     if not all(c["equal"] and c.get("smem_table_agrees", True)
@@ -1197,7 +1323,10 @@ def main():
     ms_full = time_kernel("alock", 160, 20, 1000, N_EVENTS, wl_full, tn, ln,
                           streams)
     B_full = int(wl_full.seed.shape[0])
-    bytes_ms, ops_ms = k1_bound(wl_full, streams, 160, 1000, N_EVENTS)
+    wide_plan = smem_plan.last_plan().as_dict()
+    wide_tables = tables("alock", 160, 20, 1000, 1, 0, wide_plan["warps"])
+    bound_full = k1_bound("alock", wl_full, streams, 160, 20, 1000,
+                          N_EVENTS)
     del streams, wl_full, wl_cut
 
     # -- kernel_check_open: the open loop, kernel vs plain version ----------
@@ -1213,30 +1342,70 @@ def main():
             extra["read_frac"] = 0.6
         ws = [RAMP8.replace(alg=alg, **extra),
               BURST_TOKEN.replace(alg=alg, **extra)]
-        wl = batched(ws, OPEN_EV_CHECK)
+        wl = batched(ws, OPEN_EV_CHECK, SEEDS_S)
         P, R = wl.edges.shape[1], wl.arr_fix.shape[-1]
-        smem_c = lib.event_loop_smem_bytes(el_kernel.ALGS.index(alg), OT, ON,
-                                           OK, P, R)
-        smem_py = el_kernel.smem_bytes(alg, OT, ON, OK, P, R)
-        equal, err, _, plain_ms, ops = compare(alg, OT, ON, OK,
-                                               OPEN_EV_CHECK, wl)
-        max_err_open = max(max_err_open, err)
+        c = compare(alg, OT, ON, OK, OPEN_EV_CHECK, wl, warps=W_S)
+        max_err_open = max(max_err_open, c["err"])
         open_checks.append({"alg": alg,
                             "case": "open-loop-ramp rate 8 qcap 32 + "
                                     "burst-storm token (P = 3)",
-                            "equal": equal, "ops": ops, "R": R,
-                            "n_events": OPEN_EV_CHECK, "plain_ms": plain_ms,
-                            "smem_bytes": smem_c,
-                            "smem_table_agrees": smem_c == smem_py})
+                            "equal": c["equal"], "ops": c["ops"], "R": R,
+                            "B": int(wl.seed.shape[0]),
+                            "n_events": OPEN_EV_CHECK,
+                            "plain_ms": c["plain_ms"],
+                            "pointer_path": c["diag"][:, 1].tolist(),
+                            "events_run": c["diag"][:, 0].tolist(),
+                            "warps": {w: {k: v[k] for k in (
+                                "equal", "warps", "blocks",
+                                "tail_replicas")}
+                                for w, v in c["warps"].items()},
+                            **tables(alg, OT, ON, OK, P, R, 3)})
+        # negative control of the pointer path: replica 1's arrival times
+        # fall once (a negative gap), so it must take the exact scans and
+        # still equal the plain version
+        if alg in ("alock", "mcs"):
+            def fall(plan):
+                gaps = plan.gaps.clone()
+                gaps[1, 10] = -3000
+                return plan._replace(gaps=gaps)
+            c = compare(alg, OT, ON, OK, OPEN_EV_CHECK, wl, warps=(3,),
+                        plan_edit=fall)
+            paths = c["diag"][:, 1].tolist()
+            ok = paths[1] == 0 and all(p == 1 for i, p in enumerate(paths)
+                                       if i != 1)
+            open_checks.append({"alg": alg,
+                                "case": "non-monotone arrivals in replica 1 "
+                                        "(negative control of the pointer "
+                                        "path)",
+                                "equal": c["equal"] and ok, "ops": c["ops"],
+                                "pointer_path": paths,
+                                "plain_ms": c["plain_ms"]})
+    # the loop's stop once idle for good: 32 requests are served long
+    # before node 1 rejoins at event 1,050, whose rejoin bump must still
+    # move the clocks after the stop
+    for alg in ("alock", "mcs"):
+        ws = [RAMP8.replace(alg=alg, arrivals=Arrivals(
+            rate_per_us=4.0, max_requests=32, queue_cap=8), phases=(
+                Phase(frac=0.3), Phase(frac=0.4, down_nodes=(1,)),
+                Phase(frac=0.3)))]
+        wl = batched(ws, OPEN_EV_CHECK, SEEDS_S)
+        c = compare(alg, OT, ON, OK, OPEN_EV_CHECK, wl, warps=(1,))
+        ran = c["diag"][:, 0].tolist()
+        open_checks.append({"alg": alg,
+                            "case": "idle for good before a rejoin (P = 3, "
+                                    "node 1 down for events 450-1049)",
+                            "equal": c["equal"] and max(ran) < 1050,
+                            "ops": c["ops"], "events_run": ran,
+                            "plain_ms": c["plain_ms"]})
     # the open-loop-ramp bucket of alock (6 rates x 32 seeds), timed, with
     # the event count cut for the plain version
     OPEN_WS = RAMP_ALOCK
     wl_ocut = batched(OPEN_WS, OPEN_EV_CHECK, N_SEEDS)
-    equal, err, ms_ocut, plain_ms_ocut, ops = compare(
-        "alock", OT, ON, OK, OPEN_EV_CHECK, wl_ocut, time_it=True)
-    max_err_open = max(max_err_open, err)
+    c = compare("alock", OT, ON, OK, OPEN_EV_CHECK, wl_ocut, time_it=True)
+    ms_ocut, plain_ms_ocut = c["ms"], c["plain_ms"]
+    max_err_open = max(max_err_open, c["err"])
     open_checks.append({"alg": "alock", "case": "open_bucket_cut_events",
-                        "equal": equal, "ops": ops,
+                        "equal": c["equal"], "ops": c["ops"],
                         "B": int(wl_ocut.seed.shape[0]),
                         "n_events": OPEN_EV_CHECK, "ms": ms_ocut,
                         "plain_ms": plain_ms_ocut})
@@ -1259,8 +1428,33 @@ def main():
     ms_ofull = time_kernel("alock", OT, ON, OK, N_EVENTS, wl_ofull, otn, oln,
                            ostreams, oplan)
     B_ofull = int(wl_ofull.seed.shape[0])
-    obytes_ms, oops_ms = k1_bound(wl_ofull, ostreams, OT, OK, N_EVENTS)
+    # the events each replica's data needs, from the kernel's diag
+    _, odiag = direct("alock", OT, ON, OK, N_EVENTS, wl_ofull, ostreams,
+                      oplan)
+    open_plan = smem_plan.last_plan().as_dict()
+    open_tables = tables("alock", OT, ON, OK, int(wl_ofull.edges.shape[1]),
+                         int(wl_ofull.arr_fix.shape[-1]),
+                         open_plan["warps"])
+    bound_open = k1_bound("alock", wl_ofull, ostreams, OT, ON, OK, N_EVENTS,
+                          events=odiag[:, 0])
+    open_events = odiag[:, 0].double()
     del ostreams, oplan, wl_ofull, wl_ocut
+    if not (wide_tables["smem_table_agrees"]
+            and open_tables["smem_table_agrees"]):
+        raise SystemExit(f"kernel_check: the C and Python shared-memory "
+                         f"tables differ: {wide_tables} {open_tables}")
+    emit({"phase": "k1_path_shapes", "closed": {
+              "shape": dict(WIDE, B=B_full, n_events=N_EVENTS),
+              "ms": ms_full, "smem_plan": wide_plan, **wide_tables,
+              **k1_row(bound_full)},
+          "open": {"shape": dict(alg="alock", T=OT, N=ON, K=OK,
+                                 R=RAMP8.arrivals.max_requests, B=B_ofull,
+                                 n_events=N_EVENTS),
+                   "ms": ms_ofull, "smem_plan": open_plan, **open_tables,
+                   "events_run_min": float(open_events.min()),
+                   "events_run_mean": float(open_events.mean()),
+                   "events_run_max": float(open_events.max()),
+                   **k1_row(bound_open)}})
 
     # -- golden: full-width replicas against the JAX reference's digests ----
     with open(os.path.join(HERE, "tests", "golden",
@@ -1349,6 +1543,46 @@ def main():
         raise SystemExit(f"golden_open: kernel output differs from the "
                          f"reference for {bad}")
 
+    # -- golden_algs: hlock, alock-rw, node_mult and churn at full depth ---
+    with open(os.path.join(HERE, "tests", "golden",
+                           "torch_algs_full.json")) as f:
+        golden_algs = json.load(f)
+    alg_cases = {f"{name}.{i}": w for name in golden_algs["scenarios"]
+                 for i, w in enumerate(scenario_workloads(name))}
+    groups = {}
+    for case in dict.fromkeys(r["case"] for r in golden_algs["replicas"]):
+        w = alg_cases[case]
+        groups.setdefault((w.alg, w.n_nodes, w.threads_per_node, w.n_locks),
+                          []).append(case)
+    got_algs = {}
+    for (alg, gN, gtpn, gK), cases_g in groups.items():
+        # one bucket per algorithm, phases padded as a sweep pads them
+        ws = [alg_cases[c].replace(seed=s) for c in cases_g
+              for s in golden_algs["seeds"]]
+        wl = batched(ws, golden_algs["n_events"])
+        tn, ln, _ = topology(alg, gN, gtpn, gK)
+        out = [o.cpu().numpy() for o in run_events(
+            alg, gN * gtpn, gN, gK, golden_algs["n_events"], wl, tn, ln,
+            backend="kernel", device=dev)]
+        j = 0
+        for c in cases_g:
+            for sd in golden_algs["seeds"]:
+                got_algs[(c, sd)] = {"case": c, **golden_row(
+                    alg, sd, *(o[j] for o in out))}
+                j += 1
+    got_algs = [got_algs[(r["case"], r["seed"])]
+                for r in golden_algs["replicas"]]
+    golden_algs_equal = got_algs == golden_algs["replicas"]
+    bad = [(g["case"], g["seed"]) for g, r in
+           zip(got_algs, golden_algs["replicas"]) if g != r]
+    emit({"phase": "golden_algs", "equal": golden_algs_equal,
+          "replicas": len(got_algs), "buckets": len(groups),
+          "n_events": golden_algs["n_events"], "differ": bad,
+          "reference": golden_algs["source"]})
+    if not golden_algs_equal:
+        raise SystemExit(f"golden_algs: kernel output differs from the "
+                         f"reference for {bad}")
+
     # -- main_path: the Fig. 5 grid through Experiment.run() ----------------
     exp = Experiment("fig5", n_seeds=N_SEEDS, n_events=N_EVENTS)
     for n in GRID_NODES:
@@ -1406,6 +1640,26 @@ def main():
         if row != g:
             problems.append(f"main path differs from the reference for "
                             f"{g['alg']} seed {i}")
+    # the same grid one bucket at a time (no bucket issued before the one
+    # before it is forced): every replica's outputs must be the same bits
+    def grid_digests(result):
+        return {lbl: digest(np.concatenate([
+            np.ascontiguousarray(a).view(np.uint8).ravel() for a in (
+                br.seeds, br.ops, br.sim_ns, br.lat_ns, br.per_thread_ops,
+                br.reacquires, br.passes)])) for lbl, _, br in result}
+    share, batch.IN_FLIGHT_SHARE = batch.IN_FLIGHT_SHARE, 0.0
+    batch.reset_exec_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serial = exp.run()
+    torch.cuda.synchronize()
+    serial_wall = time.perf_counter() - t0
+    serial_stats = batch.exec_stats()
+    batch.IN_FLIGHT_SHARE = share
+    serial_equal = grid_digests(res) == grid_digests(serial)
+    if not serial_equal:
+        problems.append("the concurrent grid differs from the one "
+                        "bucket at a time run")
     sanity = {alg: res[f"{alg}.n20.k20.loc100"].mean_mops
               for alg in FIG5_ALGS}
     if not (sanity["alock"] > sanity["spinlock"]
@@ -1422,6 +1676,12 @@ def main():
           "peak_device_memory_mib": peak_mib,
           "mops_n20_k20_loc100": sanity,
           "golden_replicas_checked": len(golden["replicas"]),
+          "smem_plan_last": stats["smem_plan"],
+          "one_bucket_at_a_time": {"equal": serial_equal,
+                                   "wall_seconds": serial_wall,
+                                   "seconds": serial_stats["seconds"],
+                                   "kernel_launches":
+                                       serial_stats["launches"]},
           "problems": problems})
     if problems:
         raise SystemExit("main_path: " + "; ".join(problems))
@@ -1501,11 +1761,8 @@ def main():
         # event count cut to plain_n_events; ms_at_plain_n_events is the
         # kernel at that same cut
         "plain_ms": plain_ms_cut, "plain_n_events": EV_CUT,
-        "ms_at_plain_n_events": ms_cut,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "bound_bytes_ms": bytes_ms, "bound_operations_ms": ops_ms,
-        "library_ms": None,
+        "ms_at_plain_n_events": ms_cut, **k1_row(bound_full),
+        "smem_plan": wide_plan, "library_ms": None,
     }, {
         "name": "event_loop[open]", "route": "cuda",
         "source": "src/repro_torch/csrc/event_loop.cu",
@@ -1517,11 +1774,8 @@ def main():
                       B=B_ofull, n_events=N_EVENTS),
         "ms": ms_ofull,
         "plain_ms": plain_ms_ocut, "plain_n_events": OPEN_EV_CHECK,
-        "ms_at_plain_n_events": ms_ocut,
-        "bound_ms": max(obytes_ms, oops_ms),
-        "bound_by": "bytes" if obytes_ms >= oops_ms else "operations",
-        "bound_bytes_ms": obytes_ms, "bound_operations_ms": oops_ms,
-        "library_ms": None,
+        "ms_at_plain_n_events": ms_ocut, **k1_row(bound_open),
+        "smem_plan": open_plan, "library_ms": None,
     }, tick_record] + float_records})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -19,13 +19,26 @@ of the shape key) carry the per-request arrays ``arr_ns / wait_ns /
 sojourn_ns / rstat`` and the serving aggregates ``serving(i)`` /
 ``serving_mean()``.
 
-``exec_stats()`` counts engine dispatches and kernel launches. Sharded
+On a CUDA device every bucket is issued — operands uploaded, draws, plan
+and engine launched on a stream of a small pool — before any result is
+forced, as the reference issues every bucket before it forces one
+(``repro/core/batch.py:353-406``, on one device here): the buckets' kernels
+run side by side and beside later buckets' draws. The device memory the
+issued but unforced buckets hold is bounded (``IN_FLIGHT_SHARE`` of the
+memory free when the sweep starts): past it, the oldest is forced before
+the next is issued. On the CPU each bucket is forced before the next is
+lowered, one after another as before.
+
+``exec_stats()`` counts engine dispatches and kernel launches, times the
+stages and shows the event-loop kernel's last shared-memory plan. Sharded
 dispatch (``devices=`` / ``chunk=``) is not ported yet and raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import contextlib
 import time
+from collections import deque
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -36,32 +49,53 @@ from repro_torch.core.sim import (LAT_SAMPLES, SimConfig, SimResult,
                                   topology)
 from repro_torch.device import resolve_backend, resolve_device
 from repro_torch.kernels.event_loop import kernel as _kernel
+from repro_torch.kernels.event_loop import smem_plan as _smem_plan
 from repro_torch.kernels.event_loop.ops import (precompute_draws,
                                                 precompute_plan, run_events)
 from repro_torch.traffic.metrics import serving_summary
-from repro_torch.workloads import (Workload, WorkloadOperands, as_workload,
-                                   lower, pad_phases, to_device)
+from repro_torch.workloads import (OPERAND_DTYPES, Workload,
+                                   WorkloadOperands, as_workload, lower,
+                                   pad_phases, to_device)
 
 SHARDED_MSG = (
     "sharded dispatch (sweep(devices=, chunk=)) is not ported yet — ROADMAP "
     "Queue A, item 'sweep(devices=, chunk=)'")
 
+#: CUDA streams the buckets of a sweep are issued on, in turn
+N_STREAMS = 8
+#: share of the device memory free when a sweep starts that the issued
+#: but not yet forced buckets may hold (draw streams, arrival plan,
+#: outputs: ``_bucket_bytes``)
+IN_FLIGHT_SHARE = 0.5
+
 # -- execution statistics ----------------------------------------------------
 # A "dispatch" is one engine call covering a whole bucket; "launches" is the
 # event-loop kernel's own launch counter (kernels/event_loop/kernel.py),
 # read here so a run can show that its buckets went through the kernel.
-# "seconds" splits the wall time of sweep() calls by stage ("draws" holds
-# both state-independent precomputes: the draw stream and, open loop, the
-# arrival plan); device stages are closed by a synchronize when the device
-# is a CUDA device.
+# "seconds" by stage: "lower" (host: lowering and packing the buckets) and
+# "aggregate" (host: copy back and BatchResults, after the bucket's device
+# work is done) are host-clock sums; "draws" (operand upload, draw stream,
+# arrival plan) and "engine" (the event loop) are, on a CUDA device, the
+# union of the buckets' intervals between CUDA events recorded on their
+# streams (time during which at least one bucket was in that stage; the
+# two overlap one another and the host stages), on the CPU host-clock sums;
+# "engine_only" is the part of "engine" during which no bucket was in its
+# draws (what the engine adds beside the draws); "wall" is the host clock
+# around each sweep() call. "smem_plan" is the event-loop kernel's last
+# shared-memory plan (None before any launch).
 _STATS = {"dispatches": 0}
-_SECONDS = {"lower": 0.0, "draws": 0.0, "engine": 0.0, "aggregate": 0.0}
+_SECONDS = {"lower": 0.0, "draws": 0.0, "engine": 0.0, "engine_only": 0.0,
+            "aggregate": 0.0, "wall": 0.0}
+_STREAMS: dict = {}
 
 
 def exec_stats() -> dict:
-    """Snapshot of {dispatches, launches, seconds} since the last reset."""
+    """Snapshot of {dispatches, launches, seconds, smem_plan} since the
+    last reset."""
+    plan = _smem_plan.last_plan()
     return {"dispatches": _STATS["dispatches"],
-            "launches": _kernel.launches(), "seconds": dict(_SECONDS)}
+            "launches": _kernel.launches(), "seconds": dict(_SECONDS),
+            "smem_plan": None if plan is None else plan.as_dict()}
 
 
 def reset_exec_stats() -> None:
@@ -69,6 +103,7 @@ def reset_exec_stats() -> None:
     for k in _SECONDS:
         _SECONDS[k] = 0.0
     _kernel.reset_launches()
+    _smem_plan.clear_plan()
 
 
 def shape_key(cfg, n_events: int):
@@ -197,34 +232,163 @@ class BatchResult(NamedTuple):
                            / np.sqrt(len(per_seed)))
 
 
-def _clock(dev) -> float:
+def _mark(dev):
+    """A point on a bucket's timeline: a CUDA event recorded on the current
+    stream, or the host clock on the CPU (where every stage is
+    synchronous)."""
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
     return time.perf_counter()
 
 
-def _exec_bucket(key, thread_node, lock_node, wl: WorkloadOperands,
-                 backend: str, dev):
-    """Run one flattened bucket (B rows) in one engine call and return the
-    6 output arrays (10 for an open-loop bucket) as numpy. ``wl`` leaves
-    (numpy) carry the flattened (workload x seed) axis B."""
-    alg, T, N, K, n_events, R = key
-    t0 = _clock(dev)
-    wd = to_device(wl, dev)
-    streams = precompute_draws(wd.seed, wd.edges, wd.zcdf, n_events, N,
-                               K // N, rw=alg == "alock-rw", device=dev)
-    plan = precompute_plan(wd, n_events, device=dev) if R else None
-    t1 = _clock(dev)
-    out = run_events(alg, T, N, K, n_events, wd, thread_node, lock_node,
-                     backend=backend, device=dev, streams=streams,
-                     plan=plan)
-    t2 = _clock(dev)
-    out = tuple(o.cpu().numpy() for o in out)
-    _SECONDS["draws"] += t1 - t0
-    _SECONDS["engine"] += t2 - t1
-    _SECONDS["aggregate"] += time.perf_counter() - t2
-    _STATS["dispatches"] += 1
+def _seconds(origin, mark) -> float:
+    if isinstance(mark, float):
+        return mark - origin
+    return origin.elapsed_time(mark) / 1e3
+
+
+def _merged(intervals) -> list:
+    """``(start, end)`` intervals merged into disjoint ones, in order."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
     return out
+
+
+def _union(intervals) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    return sum(b - a for a, b in _merged(intervals))
+
+
+def _union_outside(intervals, cover) -> float:
+    """Length of the union of ``intervals`` outside the union of
+    ``cover``."""
+    cover = _merged(cover)
+    total = 0.0
+    for a, b in _merged(intervals):
+        total += b - a
+        for c, d in cover:
+            total -= max(0.0, min(b, d) - max(a, c))
+    return total
+
+
+def _stream_pool(dev):
+    if dev.type != "cuda":
+        return [None]
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _STREAMS:
+        _STREAMS[idx] = [torch.cuda.Stream(device=idx)
+                         for _ in range(N_STREAMS)]
+    return _STREAMS[idx]
+
+
+def _in_flight_budget(dev) -> int:
+    """Bytes the issued but unforced buckets may hold: on the CPU none
+    (each bucket is forced before the next one), on a CUDA device
+    ``IN_FLIGHT_SHARE`` of its free memory."""
+    if dev.type != "cuda":
+        return 0
+    free, _ = torch.cuda.mem_get_info(dev)
+    return int(IN_FLIGHT_SHARE * free)
+
+
+def _bucket_bytes(key, B: int) -> int:
+    """Device bytes one bucket of ``B`` replicas holds from issue to force:
+    its draw streams, arrival plan and times, and outputs."""
+    alg, T, _, _, n_events, R = key
+    n_draws = 4 if alg == "alock-rw" else 3
+    per_replica = (4 * n_draws * n_events + 8 * LAT_SAMPLES + 4 * T + 24
+                   + R * (4 * 4 + 8 + 8 + 8 + 4))
+    return B * per_replica
+
+
+def _upload(a, dev, dtype) -> torch.Tensor:
+    """A host array as a tensor on ``dev``; to a CUDA device through
+    pinned memory without blocking the host, in the current stream."""
+    t = torch.from_numpy(np.array(a, dtype))
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+class _Issued(NamedTuple):
+    """A bucket whose device work is enqueued, with what forcing it needs."""
+    key: tuple
+    idxs: list
+    seeds: np.ndarray        # (C, S)
+    stream: object           # torch.cuda.Stream, or None on the CPU
+    out: tuple               # the engine's device outputs
+    marks: tuple             # (draws start, engine start, engine end)
+
+
+def _issue_bucket(key, idxs, seeds, thread_node, lock_node,
+                  wl: WorkloadOperands, backend: str, dev, stream) -> _Issued:
+    """Enqueue one flattened bucket (B rows): upload its operands, draw
+    its stream (and plan), launch its engine call. ``wl`` leaves (numpy)
+    carry the flattened (workload x seed) axis B."""
+    alg, T, N, K, n_events, R = key
+    ctx = (contextlib.nullcontext() if stream is None
+           else torch.cuda.stream(stream))
+    with ctx:
+        d0 = _mark(dev)
+        wd = (to_device(wl, dev) if dev.type != "cuda" else WorkloadOperands(
+            *(_upload(a, dev, OPERAND_DTYPES[name])
+              for name, a in zip(WorkloadOperands._fields, wl))))
+        tn = _upload(thread_node, dev, np.int32)
+        ln = _upload(lock_node, dev, np.int32)
+        streams = precompute_draws(wd.seed, wd.edges, wd.zcdf, n_events, N,
+                                   K // N, rw=alg == "alock-rw", device=dev)
+        plan = precompute_plan(wd, n_events, device=dev) if R else None
+        d1 = _mark(dev)
+        out = run_events(alg, T, N, K, n_events, wd, tn, ln,
+                         backend=backend, device=dev, streams=streams,
+                         plan=plan)
+        e1 = _mark(dev)
+    _STATS["dispatches"] += 1
+    return _Issued(key, idxs, seeds, stream, out, (d0, d1, e1))
+
+
+def _force_bucket(bucket: _Issued, configs, n_events: int, out: list):
+    """Wait for one issued bucket, copy its outputs back and fill its
+    workloads' ``BatchResult``s into ``out``."""
+    if bucket.stream is not None:
+        bucket.marks[-1].synchronize()
+    t_start = time.perf_counter()
+    ctx = (contextlib.nullcontext() if bucket.stream is None
+           else torch.cuda.stream(bucket.stream))
+    with ctx:
+        outs = tuple(o.cpu().numpy() for o in bucket.out)
+    _, T, _, _, _, R = bucket.key
+    C, S = bucket.seeds.shape
+    done, lat, _lat_n, t_end, nreacq, npass = outs[:6]
+    done = done.reshape(C, S, T)
+    lat = lat.reshape(C, S, LAT_SAMPLES)
+    t_end = t_end.reshape(C, S)
+    nreacq = nreacq.reshape(C, S)
+    npass = npass.reshape(C, S)
+    extras = None
+    if R:
+        extras = tuple(o.reshape(C, S, R) for o in outs[6:])
+
+    for row, i in enumerate(bucket.idxs):
+        ops = done[row].sum(axis=1).astype(np.int64)
+        sim_ns = np.maximum(t_end[row].astype(np.int64), 1)
+        # per-element arithmetic matches simulate()'s scalar formula
+        # bitwise: ops / sim_ns * 1e3 in float64 either way
+        mops = ops / sim_ns * 1e3
+        kw = {}
+        if extras is not None:
+            kw = dict(arr_ns=extras[0][row], wait_ns=extras[1][row],
+                      sojourn_ns=extras[2][row], rstat=extras[3][row])
+        out[i] = BatchResult(configs[i], n_events, bucket.seeds[row], ops,
+                             sim_ns, mops, lat[row], done[row], nreacq[row],
+                             npass[row], **kw)
+    _SECONDS["aggregate"] += time.perf_counter() - t_start
 
 
 def sweep(configs: Sequence[SimConfig | Workload], n_seeds: int = 1,
@@ -262,7 +426,8 @@ def sweep(configs: Sequence[SimConfig | Workload], n_seeds: int = 1,
     dev = resolve_device(device)
     backend = resolve_backend(backend, dev)
     configs = list(configs)
-    t_start = time.perf_counter()
+    t_wall = t_start = time.perf_counter()
+    origin = _mark(dev)
     lowered = [lower(as_workload(c), n_events, cm) for c in configs]
     buckets: dict[tuple, list[int]] = {}
     for i, lw in enumerate(lowered):
@@ -270,7 +435,22 @@ def sweep(configs: Sequence[SimConfig | Workload], n_seeds: int = 1,
     _SECONDS["lower"] += time.perf_counter() - t_start
 
     out: list[BatchResult | None] = [None] * len(configs)
-    for key, idxs in buckets.items():
+    pool = _stream_pool(dev)
+    budget = _in_flight_budget(dev)
+    issued: deque[tuple[_Issued, int]] = deque()   # (bucket, its bytes)
+    spans = []
+
+    def force_oldest():
+        bucket, _ = issued.popleft()
+        spans.append(bucket.marks)
+        _force_bucket(bucket, configs, n_events, out)
+
+    for n_bucket, (key, idxs) in enumerate(buckets.items()):
+        # bound the device memory of the issued buckets: force the oldest
+        # until this one fits (on the CPU: always, before lowering it)
+        need = _bucket_bytes(key, len(idxs) * n_seeds)
+        while issued and sum(n for _, n in issued) + need > budget:
+            force_oldest()
         t_start = time.perf_counter()
         alg, T, N, K, _, R = key
         kpn = K // N
@@ -315,30 +495,17 @@ def sweep(configs: Sequence[SimConfig | Workload], n_seeds: int = 1,
                               flat(nm), flat(ag), flat(ae), flat(aq),
                               flat(at), flat(af), flat(rk), flat(rf))
         _SECONDS["lower"] += time.perf_counter() - t_start
-        outs = _exec_bucket(key, thread_node, lock_node, wl, backend, dev)
-        t_start = time.perf_counter()
-        done, lat, _lat_n, t_end, nreacq, npass = outs[:6]
-        done = done.reshape(C, S, T)
-        lat = lat.reshape(C, S, LAT_SAMPLES)
-        t_end = t_end.reshape(C, S)
-        nreacq = nreacq.reshape(C, S)
-        npass = npass.reshape(C, S)
-        extras = None
-        if R:
-            extras = tuple(o.reshape(C, S, R) for o in outs[6:])
-
-        for row, i in enumerate(idxs):
-            ops = done[row].sum(axis=1).astype(np.int64)
-            sim_ns = np.maximum(t_end[row].astype(np.int64), 1)
-            # per-element arithmetic matches simulate()'s scalar formula
-            # bitwise: ops / sim_ns * 1e3 in float64 either way
-            mops = ops / sim_ns * 1e3
-            kw = {}
-            if extras is not None:
-                kw = dict(arr_ns=extras[0][row], wait_ns=extras[1][row],
-                          sojourn_ns=extras[2][row], rstat=extras[3][row])
-            out[i] = BatchResult(configs[i], n_events, sd[row], ops,
-                                 sim_ns, mops, lat[row], done[row],
-                                 nreacq[row], npass[row], **kw)
-        _SECONDS["aggregate"] += time.perf_counter() - t_start
+        issued.append((_issue_bucket(key, idxs, sd, thread_node,
+                                     lock_node, wl, backend, dev,
+                                     pool[n_bucket % len(pool)]), need))
+    while issued:
+        force_oldest()
+    # the device stages' time: union of the buckets' intervals
+    marks = [tuple(_seconds(origin, m) for m in ms) for ms in spans]
+    draws = [(d0, d1) for d0, d1, _ in marks]
+    engine = [(d1, e1) for _, d1, e1 in marks]
+    _SECONDS["draws"] += _union(draws)
+    _SECONDS["engine"] += _union(engine)
+    _SECONDS["engine_only"] += _union_outside(engine, draws)
+    _SECONDS["wall"] += time.perf_counter() - t_wall
     return out

@@ -3,10 +3,12 @@
 Replaces the TPU kernel ``repro/kernels/event_loop/kernel.py::
 event_loop_kernel``, closed and open loop. The kernel is latency-bound on
 this card — a replica is one chain of ``n_events`` dependent steps — so
-its design keeps a replica's whole machine state (and, open loop, its
-request rows) in shared memory, gives each replica one warp, and reads
-device memory only for the draw streams, the latency ring and the
-per-request waits and sojourns (see the header of the ``.cu`` file).
+its design keeps a replica's whole machine state and the current phase's
+operands (and, open loop, its request rows) in a shared-memory region,
+gives each replica one warp and packs ``W`` replicas into a block (the
+planner ``smem_plan.py`` chooses ``W``), and reads device memory only for
+the draw streams, the latency ring and the per-request waits and
+sojourns (see the header of the ``.cu`` file).
 
 Build: at the first launch ``csrc/event_loop.cu`` is compiled by ``nvcc``
 for ``sm_90a`` into ``build/`` at the repository root (``kernels/_build``),
@@ -16,7 +18,8 @@ Nothing here runs at import time: importing this module needs neither
 
 ``run_events_kernel`` launches the kernel for CUDA tensors or raises —
 there is no path from here to the plain version. ``LAUNCHES`` counts the
-launches (one per call), and nothing else increments it.
+launches (one per call), and nothing else increments it. ``smem_table`` /
+``smem_bytes`` price one replica's region (``smem_plan.py``).
 """
 from __future__ import annotations
 
@@ -26,14 +29,11 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
-
-ALGS = ("alock", "mcs", "spinlock", "hlock", "alock-rw")
+from repro_torch.kernels.event_loop.smem_plan import (  # noqa: F401
+    ALGS, plan_for_run, smem_bytes, smem_table)
 
 #: number of kernel launches since the last ``reset_launches()``
 LAUNCHES = 0
-
-#: shared memory one block may use on Hopper (dynamic, opt-in above 48 KB)
-SMEM_LIMIT = 227 * 1024
 
 SOURCE = _build.CSRC / "event_loop.cu"
 NVCC_FLAGS = _build.FLAGS
@@ -62,10 +62,12 @@ def build_seconds():
 
 def _setup(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.event_loop_launch.argtypes = [ci] + [vp] * 28 + [ci] * 8 + [vp]
+    lib.event_loop_launch.argtypes = [ci] + [vp] * 29 + [ci] * 9 + [vp]
     lib.event_loop_launch.restype = ci
     lib.event_loop_smem_bytes.argtypes = [ci] * 6
     lib.event_loop_smem_bytes.restype = ci
+    lib.event_loop_block_bytes.argtypes = [ci] * 7
+    lib.event_loop_block_bytes.restype = ci
     lib.event_loop_error_string.argtypes = [ci]
     lib.event_loop_error_string.restype = ctypes.c_char_p
 
@@ -73,52 +75,6 @@ def _setup(lib):
 def load():
     """The loaded library (built on first use), with ``argtypes`` set."""
     return _build.load(SOURCE, "event_loop", _setup, NVCC_FLAGS)
-
-
-def smem_table(alg: str, T: int, N: int, K: int, P: int,
-               R: int = 0) -> dict:
-    """name -> bytes of every per-replica shared-memory buffer of one
-    block (one replica per block); mirrors the carve-up in the ``.cu``.
-    ``R > 0`` adds the open loop's request rows and bound requests."""
-    fam = alg in ("alock", "hlock", "alock-rw")
-    table = {"ready": 8 * T, "op_start": 8 * T, "busy": 8 * N}
-    if R:
-        table["arrival"] = 8 * R
-    table["tail0/word"] = 4 * K
-    if fam:
-        table["tail1"] = 4 * K
-        table["victim"] = 4 * K
-    if alg == "alock-rw":
-        table["reader_count"] = 4 * K
-    for name in ("pc", "budget", "nxt", "prev", "target", "cohort", "done"):
-        table[name] = 4 * T
-    table["edges"] = 4 * P
-    if R:
-        for name in ("rstat", "token", "token_cum", "queue_cap"):
-            table[name] = 4 * R
-        table["curreq"] = 4 * T
-    return table
-
-
-def smem_bytes(alg: str, T: int, N: int, K: int, P: int, R: int = 0) -> int:
-    """Price the per-replica on-chip state before launch. Raises an
-    actionable ``ValueError`` naming the dominant buffers when it exceeds
-    what one block may hold (227 KB)."""
-    if alg not in ALGS:
-        raise ValueError(f"unknown algorithm {alg!r}; expected one of {ALGS}")
-    table = smem_table(alg, T, N, K, P, R)
-    total = sum(table.values())
-    if total > SMEM_LIMIT:
-        top = sorted(table.items(), key=lambda kv: -kv[1])[:3]
-        detail = ", ".join(f"{n}={b:,}B" for n, b in top)
-        raise ValueError(
-            f"event-loop kernel cannot fit one replica's state into the "
-            f"{SMEM_LIMIT:,}B of shared memory a block may use: "
-            f"(alg={alg}, T={T}, N={N}, K={K}, P={P}, R={R}) needs "
-            f"{total:,}B (largest buffers: {detail}). Lower n_locks (the "
-            f"K-sized lock tables) or max_requests (the R-sized request "
-            f"rows), or run this shape with backend='plain'.")
-    return total
 
 
 def _check(name, t, dtype, shape):
@@ -134,14 +90,20 @@ def _check(name, t, dtype, shape):
 
 
 def run_events_kernel(alg, T, N, K, n_events, wl, thread_node, lock_node,
-                      streams, *, lat_samples: int, plan=None, arr=None):
+                      streams, *, lat_samples: int, plan=None, arr=None,
+                      warps: int | None = None, diag=None):
     """Launch the CUDA event loop for B replicas on the current stream.
 
     Same contract as ``ref.run_events_plain``. The wrapper checks device,
-    dtype, shape and contiguity, allocates and pre-fills every output
-    (``lat``, ``wq``, ``soj`` = -1), launches without synchronising,
-    checks the launch error and raises on anything the kernel does not
-    take.
+    dtype, shape and contiguity, plans the replicas per block
+    (``smem_plan.plan_for_run``; ``warps`` overrides the request),
+    allocates and pre-fills every output (``lat``, ``wq``, ``soj`` = -1),
+    launches without synchronising, checks the launch error and raises on
+    anything the kernel does not take. ``diag``, an optional ``(B, 2)``
+    int32 CUDA tensor, receives per replica the events the loop ran before
+    it stopped (``n_events`` unless an open-loop replica fell idle for
+    good) and 1 where the open loop took its pointer path (0: the exact
+    R-wide scans, or a closed loop).
     """
     global LAUNCHES
     R = wl.arr_fix.shape[-1]
@@ -189,11 +151,16 @@ def run_events_kernel(alg, T, N, K, n_events, wl, thread_node, lock_node,
                         ("qcap", plan.qcap)):
             _check(name, t, i32, (B, R))
         tok, tokcum, qcap = plan.tok, plan.tokcum, plan.qcap
+    if diag is not None:
+        _check("diag", diag, i32, (B, 2))
     dev = u1.device
     for t in (wl.edges, thread_node, lock_node, r2, r3) + (
-            (arr, tok) if R else ()):
+            (arr, tok) if R else ()) + ((diag,) if diag is not None else ()):
         if t.device != dev:
             raise ValueError("all operands must lie on one CUDA device")
+    splan = plan_for_run(
+        alg, B, T, N, K, P, R, warps=warps,
+        n_sm=torch.cuda.get_device_properties(dev).multi_processor_count)
 
     lib = load()
     done = torch.zeros((B, T), dtype=i32, device=dev)
@@ -223,13 +190,14 @@ def run_events_kernel(alg, T, N, K, n_events, wl, thread_node, lock_node,
             ptr(lock_node), ptr(rack), ptr(done), ptr(lat), ptr(lat_n),
             ptr(t_end), ptr(nreacq), ptr(npass), ptr(arr), ptr(tok),
             ptr(tokcum), ptr(qcap), ptr(wq), ptr(soj), ptr(rstat),
-            B, T, N, K, P, R, n_events, lat_samples, stream)
+            ptr(diag), B, splan.warps, T, N, K, P, R, n_events, lat_samples,
+            stream)
     if err != 0:
         msg = lib.event_loop_error_string(err).decode()
         raise RuntimeError(
-            f"event-loop kernel launch failed for (alg={alg}, B={B}, T={T}, "
-            f"N={N}, K={K}, P={P}, R={R}, n_events={n_events}): CUDA error "
-            f"{err} ({msg})")
+            f"event-loop kernel launch failed for (alg={alg}, B={B}, "
+            f"W={splan.warps}, T={T}, N={N}, K={K}, P={P}, R={R}, "
+            f"n_events={n_events}): CUDA error {err} ({msg})")
     LAUNCHES += 1
     out = (done, lat, lat_n, t_end, nreacq, npass)
     return out + (arr, wq, soj, rstat) if R else out
