@@ -91,27 +91,39 @@ per source, all started together), then prints one JSON object per phase:
               at the path shape with the default device and backend, launch
               counters set to 0 just before and read just after (K3, K4,
               K5 and K6 once each), outputs held against a plain run
-  kernel_check_tick  K2 (``alock_tick``) against its plain version on the
-              card, ``torch.equal`` on all six outputs: the reference
-              tests' shapes (one padded), per-table cohorts under four
-              budget pairs, mid-run state, out-of-range schedule entries,
-              T = 100 (the block shrunk to whole warps), the path shape with
-              the steps cut (both timed), the C and Python shared-memory
-              tables, and a negative control (one schedule entry changed)
+  kernel_check_tick  K2 against its plain version on the card,
+              ``torch.equal`` on all six outputs. Schedule given (mode a,
+              ``alock_tick``): the reference tests' shapes (one padded),
+              per-table cohorts under four budget pairs, mid-run state,
+              out-of-range schedule entries, T = 100, and a negative control
+              (one schedule entry changed). Schedule drawn in the kernel
+              (mode b, ``tick_drawn``) against ``ops.schedule`` + the plain
+              version: seeds {0, 1, 7, 2**31-1} x T in {3, 5, 16, 100},
+              mid-run state, rows of a (30000, 150000) draw whose counters
+              pass 2**32, and a negative control (one key word flipped).
+              The path shape with the steps cut, both modes timed; the C and
+              Python shared-memory tables of the plans
+  schedule_gen  the schedule K2 draws, written out by a draw-only launch,
+              equals ``ops.schedule`` bit for bit at the prng phase's three
+              shapes x four seeds, and ``prng.randint(rows=)`` past 2**32
   golden_tick the path shape (4,096 tables x 16 threads x 150,000 steps)
-              at full depth: the schedule's and K2's six outputs' SHA-256,
-              ``in_cs_frac`` and the pc histogram equal
-              ``tests/golden/torch_tick_full.json`` (the JAX reference's)
+              at full depth: the schedule's SHA-256, and K2's six outputs'
+              SHA-256, ``in_cs_frac`` and the pc histogram in both modes,
+              equal ``tests/golden/torch_tick_full.json`` (the JAX
+              reference's)
   schedule_check  ``run_schedule`` for all five algorithms on the card equals
               the same call on the CPU, trace and final state
   main_path_tick  ``monte_carlo_cs_entries`` at the path shape with the
               default device and backend, K2's counter set to 0 just before
-              and read just after: launches, seconds by stage, table-steps
-              per second, peak device memory, the two statistics
+              and read just after: one launch, drawing its schedule (no
+              (tables, steps) schedule allocated: peak device memory below
+              its size), seconds by stage, table-steps per second, the two
+              statistics equal to the golden's
   kernels     the per-kernel record (K1 closed and open, K2, K3-K6): launches
               on each main path, largest deviation from the plain version,
-              times, the roofline bound and the library call's time (K1:
-              also its latency bound and which of the three binds)
+              times, the roofline bound and the library call's time (K1 and
+              K2: also the latency bound and which of the three binds; K2
+              in both modes)
 
 and, last, the card's ``nvidia-smi`` line and ``{"ok": true, "device":
 {...}}``. Any phase that fails raises, and the run exits non-zero.
@@ -167,15 +179,21 @@ TICK_COHORTS = (0,) * 8 + (1,) * 8
 TICK_B_INIT = (5, 20)
 #: steps of the path shape at which the plain version is timed
 TICK_STEPS_CUT = 2000
-#: scalar operations one ALock step needs, counted from the kernel's
-#: switch: read the scheduled thread and range-check it, read its cohort
-#: and pc, pick the cohort's tail, dispatch, the arm's read-compare-write,
-#: write the pc and the tail back
+#: scalar operations one ALock step needs: read the scheduled thread and
+#: range-check it, read its cohort and pc, pick the cohort's tail, decide
+#: the class, the class's read-compare-write, write the pc and the tail back
 TICK_STEP_OPS = 10
+#: integer instructions of one threefry2x32 hash: 2 key adds, 20 rounds of
+#: add, rotate and xor, 5 key injections of two adds each
+THREEFRY_OPS = 72
+#: integer instructions of one remainder by the launch's span through its
+#: magic: multiply-high, subtract, shift, add, shift, multiply-subtract
+MOD_OPS = 6
 
 # published peaks of one H100 SXM (dense, full power limit)
 HBM_BYTES_PER_S = 3.35e12
-ALU32_OPS_PER_S = 67e12        # 32-bit rate outside the tensor cores
+ALU32_OPS_PER_S = 67e12        # f32 rate outside the tensor cores (an FMA
+                               # counts two): K6's float work
 BF16_OPS_PER_S = 989e12        # bf16 products on the tensor cores
 #: f32 products on the tensor cores as 3xTF32 (three TF32 products at
 #: 495e12 each), the least time the card can take for f32 attention work
@@ -213,11 +231,22 @@ SM_CLOCK_HZ = 1.98e9
 #: load), the new clock is computed (an operation) and written where the
 #: next event's argmin reads it (that read is the next event's first load)
 EVENT_CHAIN_CYCLES = 3 * SMEM_LOAD_CYCLES + 2 * INT_OP_CYCLES
+#: the minimal chain of one K2 step: the step reads what the last one left
+#: in registers (the cohort tail, or the record of the same thread), tests
+#: it (an empty queue at SWAP, the thread's own id at REL_CAS, the budget
+#: at SPIN_BUDGET) and selects the new value from the test (two
+#: operations); the next thread's record can be loaded ahead
+TICK_CHAIN_CYCLES = 2 * INT_OP_CYCLES
 #: what the card holds at once: 132 SMs of 228 KB shared memory and 64
 #: resident warps each (one warp per replica)
 N_SM = 132
 SM_SMEM_BYTES = 228 * 1024
 SM_WARPS = 64
+#: integer instructions a second: 64 INT32 lanes on each of the 132 SMs
+#: (16 in each of its four partitions; NVIDIA H100 Tensor Core GPU
+#: Architecture white paper) at SM_CLOCK_HZ. No integer instruction counts
+#: twice, as an FMA does in ALU32_OPS_PER_S. K1's and K2's operations.
+INT32_OPS_PER_S = N_SM * 64 * SM_CLOCK_HZ
 
 
 def emit(obj):
@@ -244,7 +273,7 @@ def k1_bound(alg, wl, streams, T, N, K, n_events, events=None,
     (the draw streams for those events) and every output written once,
     over the HBM rate. ``operations``: per event 2 operations per thread
     for the masked argmin, STEP_OPS for the transition and, open loop,
-    OPEN_EVENT_OPS, plus REQ_OPS per request slot, over the 32-bit rate.
+    OPEN_EVENT_OPS, plus REQ_OPS per request slot, over the INT32 rate.
     ``latency``: per replica its events x EVENT_CHAIN_CYCLES at
     SM_CLOCK_HZ; replicas run side by side up to what the card holds at
     once (shared memory and resident warps) and in waves beyond it, so the
@@ -273,7 +302,7 @@ def k1_bound(alg, wl, streams, T, N, K, n_events, events=None,
         smem_bytes(alg, T, N, K, P, R)))
     chain_events = max(float(ev.max()), total_ev / capacity)
     return {"bytes_ms": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
-            "operations_ms": ops / ALU32_OPS_PER_S * 1e3,
+            "operations_ms": ops / INT32_OPS_PER_S * 1e3,
             "latency_ms": chain_events * EVENT_CHAIN_CYCLES / SM_CLOCK_HZ
             * 1e3,
             "events": total_ev, "resident_replicas": capacity}
@@ -353,16 +382,40 @@ def ssd_bound(B, S, H, P, N, L):
     return row
 
 
-def k2_bound(tables, T, steps):
+def draw_ops(T):
+    """Integer instructions one element of the drawn schedule needs
+    (``core/prng.py::randint``): the 64-bit counter (2), the lower bits'
+    hash and its xor; where the span is a power of two a mask, else the
+    higher bits' hash and xor, three remainders and the multiply-add."""
+    span = max(T, 1)
+    if span & (span - 1) == 0:
+        return 2 + THREEFRY_OPS + 1 + 1
+    return 2 + 2 * (THREEFRY_OPS + 1) + 3 * MOD_OPS + 1
+
+
+def k2_bound(tables, T, steps, drawn):
     """K2 alock_tick on ``tables`` tables of ``T`` threads over ``steps``
-    scheduled steps, all int32: the schedule, the cohorts and the state
-    (tails, victim, pc/budget/next/prev) read once, the state written
-    once; TICK_STEP_OPS scalar operations per (table, step) over the
-    32-bit rate."""
+    steps, all int32, as a kernels-phase row. ``bytes``: the cohorts and
+    the state (tails, victim, pc/budget/next/prev) read once, the state
+    written once, and the schedule read once unless it is ``drawn`` in the
+    kernel. ``operations``: TICK_STEP_OPS per (table, step), plus
+    ``draw_ops(T)`` when drawn, over the INT32 rate. ``latency``: steps x
+    TICK_CHAIN_CYCLES at SM_CLOCK_HZ, the tables side by side (in waves
+    beyond one per lane of every resident warp). ``bound_ms`` / ``bound_by``
+    are the larger of bytes and operations; ``binds`` names the largest of
+    the three."""
     state = 2 + 1 + 4 * T
-    row = bound_row(4 * (tables * steps + tables * T + 2 * tables * state),
-                    tables * steps * TICK_STEP_OPS, ALU32_OPS_PER_S)
-    row["shape"] = dict(tables=tables, T=T, steps=steps)
+    nbytes = 4 * (tables * T + 2 * tables * state
+                  + (0 if drawn else tables * steps))
+    nops = tables * steps * (TICK_STEP_OPS + (draw_ops(T) if drawn else 0))
+    row = bound_row(nbytes, nops, INT32_OPS_PER_S)
+    waves = max(1.0, tables / (N_SM * SM_WARPS * 32))
+    lat = steps * waves * TICK_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3
+    terms = {"bytes": row["bound_bytes_ms"],
+             "operations": row["bound_operations_ms"], "latency": lat}
+    row.update(bound_latency_ms=lat, bound_with_latency_ms=max(
+        terms.values()), binds=max(terms, key=terms.get),
+        shape=dict(tables=tables, T=T, steps=steps, drawn=drawn))
     return row
 
 
@@ -810,10 +863,11 @@ def float_kernel_phases(torch, dev):
 
 
 def tick_phases(torch, dev, np):
-    """kernel_check_tick, golden_tick, schedule_check and main_path_tick;
-    returns K2's record of the ``kernels`` line. Raises on any
-    disagreement."""
+    """kernel_check_tick, schedule_gen, golden_tick, schedule_check and
+    main_path_tick; returns K2's record of the ``kernels`` line. Raises on
+    any disagreement."""
     from repro_torch.core import machine as mc
+    from repro_torch.core import prng
     from repro_torch.core.sim import run_schedule
     from repro_torch.kernels.alock_tick import kernel as tk
     from repro_torch.kernels.alock_tick import ops as tops
@@ -835,15 +889,28 @@ def tick_phases(torch, dev, np):
                    zip(a, b))
 
     # -- kernel_check_tick: K2 vs its plain version, on the card ------------
+    # every case with the schedule given (mode a); then the schedule drawn
+    # in the kernel (mode b) against ops.schedule + the plain version
     lib = tk.load()
-    smem_rows = [{"T": T, "tile": tile,
-                  "smem_bytes": lib.alock_tick_smem_bytes(
-                      T, tk.tables_per_block(T, tile)),
-                  "agrees": lib.alock_tick_smem_bytes(
-                      T, tk.tables_per_block(T, tile))
-                  == tk.smem_bytes(T, tile)}
-                 for T, tile in ((3, 4), (16, 128), (100, 128), (300, 64))]
+    smem_rows = []
+    for T, tile, mode, cw in ((3, 4, "given", 1), (16, 128, "given", 1),
+                              (16, 128, "drawn", 1), (100, 128, "drawn", 1),
+                              (300, 64, "given", 1), (200, 128, "given", 4),
+                              (16, 128, "drawn", 4)):
+        p = tk.tick_plan(T, tile, None, mode, chain_warps=cw)
+        c_bytes = lib.alock_tick_smem_bytes(T, p.chain_warps, p.stage_steps,
+                                            p.stages)
+        smem_rows.append({**p.as_dict(), "tile": tile,
+                          "chain_warps_asked": cw, "c_smem_bytes": c_bytes,
+                          "agrees": c_bytes == p.smem_bytes})
     cases = []
+
+    def record(name, got, want, **kw):
+        ok = equal(got, want)
+        cases.append({"case": name, **kw, "equal": ok,
+                      "max_abs_err": abs_err(got, want),
+                      "in_cs": int((got[2] == mc.CS).sum())})
+        return ok
 
     def case(name, Tab, T, steps, tile, b_init, seed, per_table=False,
              state=None, lo=0, hi=None):
@@ -858,13 +925,9 @@ def tick_phases(torch, dev, np):
             state = tops.fresh_tables(Tab, T, dev)
         got = run(state, sched, coh, b_init, tile)
         want = run(state, sched, coh, b_init, tile, plain=True)
-        ok = equal(got, want)
-        cases.append({"case": name, "tables": Tab, "T": T, "steps": steps,
-                      "tile": tile, "tables_per_block":
-                      tk.tables_per_block(T, min(tile, Tab)),
-                      "b_init": list(b_init), "equal": ok,
-                      "max_abs_err": abs_err(got, want),
-                      "in_cs": int((got[2] == mc.CS).sum())})
+        ok = record(name, got, want, mode="given", tables=Tab, T=T,
+                    steps=steps, tile=tile, plan=tk.last_plan(),
+                    b_init=list(b_init))
         return got, sched, coh, ok
 
     case("reference test shape", 8, 4, 300, 4, (2, 3), 5)
@@ -875,8 +938,8 @@ def tick_phases(torch, dev, np):
         case("per-table cohorts, mid-run state in", 300, 16, 500, 128, b,
              sum(b) + 1, per_table=True, state=mid)
     case("threads out of range", 64, 5, 400, 32, (2, 3), 3, lo=-2, hi=7)
-    case("T = 100, block shrunk to whole warps", 200, 100, 300, 128, (5, 20),
-         4, per_table=True)
+    case("T = 100, records of 32 tables in 64 KB", 200, 100, 300, 128,
+         (5, 20), 4, per_table=True)
     # negative control: one schedule entry changed (the last step of
     # table 0 moves another thread); the outputs must differ
     state = tops.fresh_tables(8, 4, dev)
@@ -892,12 +955,57 @@ def tick_phases(torch, dev, np):
             caught = equal(got_bad, run(state, bad, coh0, (2, 3), 4,
                                         plain=True))
             break
-    # the path shape with the steps cut for the plain version, both timed
+
+    # mode b: seeds x spans (3, 5 and 100 are not powers of two), per-table
+    # cohorts, 100 tables (a ragged last block)
+    def drawn_case(name, Tab, T, steps, seed, state=None, r0=0, pitch=None):
+        rng = np.random.default_rng(seed % 1000 + T)
+        coh = torch.from_numpy(rng.integers(0, 2, (Tab, T)).astype(
+            np.int32)).to(dev)
+        if state is None:
+            state = tops.fresh_tables(Tab, T, dev)
+        if r0 == 0 and pitch is None:
+            sched = tops.schedule(Tab, steps, T, seed, dev)
+        else:
+            k = prng.key(torch.tensor(seed, dtype=torch.int32, device=dev))
+            sched = prng.randint(k, (r0 + Tab, pitch), 0, T,
+                                 rows=(r0, r0 + Tab))[:, :steps].contiguous()
+        got = tk.tick_drawn(*state, coh, seed=seed, steps=steps,
+                            b_init=TICK_B_INIT, r0=r0, pitch=pitch)
+        want = run(state, sched, coh, TICK_B_INIT, 128, plain=True)
+        record(name, got, want, mode="drawn", tables=Tab, T=T, steps=steps,
+               seed=seed, r0=r0, pitch=pitch or steps, plan=tk.last_plan())
+        return got, coh
+
+    for seed in PLAN_SEEDS:
+        for T in (3, 5, 16, 100):
+            got, _ = drawn_case("drawn", 100, T, 200, seed)
+    mid, _ = drawn_case("drawn, before mid-run state", 100, 16, 200, 1)
+    drawn_case("drawn, mid-run state in", 100, 16, 200, 1, state=mid)
+    for T in (5, 16):       # rows 29,000+ of a (30000, 150000) draw
+        drawn_case("drawn, counters past 2**32", 64, T, 300, 7, r0=29000,
+                   pitch=150_000)
+    # negative control: one key word flipped; the outputs must differ
+    st5 = tops.fresh_tables(100, 5, dev)
+    coh5 = torch.zeros((100, 5), dtype=torch.int32, device=dev)
+    good5 = tk.tick_drawn(*st5, coh5, seed=0, steps=200)
+    w5 = tk.draw_words(0, 5, 0, 200)
+    key_caught = not equal(good5, tk.tick_drawn(
+        *st5, coh5, seed=0, steps=200, words=w5._replace(hi0=w5.hi0 ^ 1)))
+
+    # the path shape with the steps cut for the plain version; both modes
+    # timed
     Tab, T = TICK_PATH["tables"], TICK_PATH["T"]
     coh_path = torch.tensor(TICK_COHORTS, **i32).expand(Tab, T).contiguous()
     sched_cut = tops.schedule(Tab, TICK_STEPS_CUT, T, 0, dev)
     st_cut = tops.fresh_tables(Tab, T, dev)
+
+    def drawn_cut(words=None):
+        return tk.tick_drawn(*st_cut, coh_path, seed=0, steps=TICK_STEPS_CUT,
+                             b_init=TICK_B_INIT, words=words)
+
     got = run(st_cut, sched_cut, coh_path, TICK_B_INIT, 128)
+    got_b = drawn_cut()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = run(st_cut, sched_cut, coh_path, TICK_B_INIT, 128, plain=True)
@@ -905,23 +1013,51 @@ def tick_phases(torch, dev, np):
     plain_ms_cut = (time.perf_counter() - t0) * 1e3
     ms_cut = cuda_ms(torch, lambda: run(st_cut, sched_cut, coh_path,
                                         TICK_B_INIT, 128))
-    cases.append({"case": "path shape, steps cut", "tables": Tab, "T": T,
-                  "steps": TICK_STEPS_CUT, "tile": 128,
-                  "equal": equal(got, want),
-                  "max_abs_err": abs_err(got, want), "ms": ms_cut,
-                  "plain_ms": plain_ms_cut})
+    ms_cut_b = cuda_ms(torch, drawn_cut)
+    record("path shape, steps cut", got, want, mode="given", tables=Tab,
+           T=T, steps=TICK_STEPS_CUT, ms=ms_cut, plain_ms=plain_ms_cut)
+    record("path shape, steps cut", got_b, want, mode="drawn", tables=Tab,
+           T=T, steps=TICK_STEPS_CUT, ms=ms_cut_b, plain_ms=plain_ms_cut)
+    w16 = tk.draw_words(0, T, 0, TICK_STEPS_CUT)
+    key_caught = key_caught and not equal(
+        got_b, drawn_cut(w16._replace(lo0=w16.lo0 ^ 1)))
     max_err = max(c["max_abs_err"] for c in cases)
-    del sched_cut, st_cut, got, want
+    del sched_cut, st_cut, got, got_b, want
     all_equal = all(c["equal"] for c in cases) and all(
         r["agrees"] for r in smem_rows)
     emit({"phase": "kernel_check_tick", "tolerance": 0, "outputs": 6,
           "all_equal": all_equal, "negative_control_caught": caught,
-          "smem_tables": smem_rows, "cases": cases})
-    if not (all_equal and caught):
+          "key_control_caught": key_caught, "smem_tables": smem_rows,
+          "cases": cases})
+    if not (all_equal and caught and key_caught):
         raise SystemExit("kernel_check_tick: the CUDA kernel and its plain "
-                         "version disagree, or the control was not caught")
+                         "version disagree, or a control was not caught")
 
-    # -- golden_tick: the path shape at full depth against the reference ---
+    # -- schedule_gen: the schedule K2 draws, written out -------------------
+    gen_rows = []
+    for seed in PLAN_SEEDS:
+        for n, steps, T_ in ((64, 1000, 16), (37, 333, 3), (5, 7, 1)):
+            a = tk.draw_schedule(n, steps, T_, seed, device=dev)
+            gen_rows.append({"seed": seed, "shape": [n, steps], "T": T_,
+                             "equal": torch.equal(a, tops.schedule(
+                                 n, steps, T_, seed, dev))})
+    for T_ in (5, 16):
+        k = prng.key(torch.tensor(7, dtype=torch.int32, device=dev))
+        want_s = prng.randint(k, (30000, 150_000), 0, T_,
+                              rows=(29000, 29064))
+        a = tk.draw_schedule(64, 150_000, T_, 7, r0=29000, device=dev)
+        gen_rows.append({"seed": 7, "shape": [64, 150_000], "T": T_,
+                         "rows_of": [30000, 150_000], "r0": 29000,
+                         "equal": torch.equal(a, want_s)})
+    del want_s, a
+    gen_equal = all(r["equal"] for r in gen_rows)
+    emit({"phase": "schedule_gen", "equal": gen_equal, "cases": gen_rows})
+    if not gen_equal:
+        raise SystemExit("schedule_gen: the schedule drawn in K2 differs "
+                         "from ops.schedule")
+
+    # -- golden_tick: the path shape at full depth against the reference,
+    # schedule given (mode a) and drawn (mode b) ----------------------------
     with open(os.path.join(HERE, "tests", "golden",
                            "torch_tick_full.json")) as f:
         golden = json.load(f)
@@ -938,26 +1074,40 @@ def tick_phases(torch, dev, np):
     coh_g = torch.tensor(golden["cohorts"], **i32).expand(Tab, T).contiguous()
     st = tops.fresh_tables(Tab, T, dev)
     b_g = tuple(golden["b_init"])
-    out = run(st, sched, coh_g, b_g, 128)
     names = ("tails", "victim", "pc", "budget", "nxt", "prev")
-    got_d = {n: digest(o.cpu().numpy()) for n, o in zip(names, out)}
-    frac = tops.in_cs_fraction(out[2])
-    hist = torch.bincount(out[2].reshape(-1), minlength=14)[:14].tolist()
+
+    def held(out):
+        got_d = {n: digest(o.cpu().numpy()) for n, o in zip(names, out)}
+        frac = tops.in_cs_fraction(out[2])
+        hist = torch.bincount(out[2].reshape(-1), minlength=14)[:14].tolist()
+        return {"equal": (got_d == golden["final_sha256"]
+                          and frac == golden["in_cs_frac"]
+                          and hist == golden["final_pc_histogram"]),
+                "final_equal": {n: got_d[n] == golden["final_sha256"][n]
+                                for n in names},
+                "in_cs_frac": frac, "final_pc_histogram": hist}
+
+    given_rec = held(run(st, sched, coh_g, b_g, 128))
     ms_full = cuda_ms(torch, lambda: run(st, sched, coh_g, b_g, 128))
-    g_ok = (h.hexdigest() == golden["sched_sha256"]
-            and got_d == golden["final_sha256"]
-            and frac == golden["in_cs_frac"]
-            and hist == golden["final_pc_histogram"])
-    bound = k2_bound(Tab, T, golden["steps"])
-    emit({"phase": "golden_tick", "equal": g_ok,
-          "schedule_equal": h.hexdigest() == golden["sched_sha256"],
-          "final_equal": {n: got_d[n] == golden["final_sha256"][n]
-                          for n in names},
-          "in_cs_frac": frac, "final_pc_histogram": hist,
-          "schedule_seconds": sched_s, "kernel_ms": ms_full,
-          "bound_ms": bound["bound_ms"], "reference": golden["source"],
+    del sched
+
+    def drawn_full():
+        return tk.tick_drawn(*st, coh_g, seed=golden["seed"],
+                             steps=golden["steps"], b_init=b_g)
+
+    drawn_rec = held(drawn_full())
+    ms_full_b = cuda_ms(torch, drawn_full)
+    sched_ok = h.hexdigest() == golden["sched_sha256"]
+    g_ok = sched_ok and given_rec["equal"] and drawn_rec["equal"]
+    bound = k2_bound(Tab, T, golden["steps"], drawn=True)
+    bound_given = k2_bound(Tab, T, golden["steps"], drawn=False)
+    emit({"phase": "golden_tick", "equal": g_ok, "schedule_equal": sched_ok,
+          "given": given_rec, "drawn": drawn_rec,
+          "schedule_seconds": sched_s, "kernel_ms_given": ms_full,
+          "kernel_ms_drawn": ms_full_b, "bound_drawn": bound,
+          "bound_given": bound_given, "reference": golden["source"],
           "reference_jax": golden["jax"]})
-    del sched, st, out
+    del st
     if not g_ok:
         raise SystemExit("golden_tick: K2 or the schedule differs from the "
                          "reference's digests")
@@ -994,9 +1144,16 @@ def tick_phases(torch, dev, np):
     stats = tops.exec_stats()                # read just after
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     hist = res["final_pc_histogram"].tolist()
+    sched_mib = Tab * TICK_PATH["steps"] * 4 / 2**20
     problems = []
     if stats["launches"] != 1:
         problems.append(f"K2 launched {stats['launches']} times, not once")
+    if (stats["plan"] or {}).get("launch_mode") != "drawn":
+        problems.append(f"K2 did not draw the schedule: {stats['plan']}")
+    if peak_mib >= sched_mib:
+        problems.append(f"peak device memory {peak_mib:.1f} MiB holds a "
+                        f"({Tab}, {TICK_PATH['steps']}) schedule "
+                        f"({sched_mib:.1f} MiB)")
     if sum(hist) != Tab * T or not 0.0 <= res["in_cs_frac"] <= 1.0:
         problems.append(f"bad statistics {res}")
     if res["in_cs_frac"] != golden["in_cs_frac"] \
@@ -1008,6 +1165,7 @@ def tick_phases(torch, dev, np):
           "wall_seconds": wall, "seconds": stats["seconds"],
           "table_steps_per_second": Tab * TICK_PATH["steps"] / wall,
           "peak_device_memory_mib": peak_mib,
+          "schedule_mib_not_allocated": sched_mib, "plan": stats["plan"],
           "in_cs_frac": res["in_cs_frac"], "final_pc_histogram": hist,
           "problems": problems})
     if problems:
@@ -1018,14 +1176,22 @@ def tick_phases(torch, dev, np):
         "replaces": "src/repro/kernels/alock_tick/kernel.py:26",
         "launches": stats["launches"], "max_abs_err": max_err,
         "tolerance": 0,
-        "shape": dict(TICK_PATH), "ms": ms_full,
+        # the main path's launch draws the schedule (mode b); ms_given is
+        # the same tables with the schedule given (mode a), the TPU
+        # kernel's contract
+        "shape": dict(TICK_PATH), "mode": "drawn", "ms": ms_full_b,
+        "ms_given": ms_full, "plan": stats["plan"],
         # the plain version at the path's tables and threads with the steps
         # cut to plain_steps; ms_at_plain_steps is the kernel at that cut
         "plain_ms": plain_ms_cut, "plain_steps": TICK_STEPS_CUT,
-        "ms_at_plain_steps": ms_cut,
-        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-        "bound_bytes_ms": bound["bound_bytes_ms"],
-        "bound_operations_ms": bound["bound_operations_ms"],
+        "ms_at_plain_steps": ms_cut_b, "ms_given_at_plain_steps": ms_cut,
+        **{k: bound[k] for k in (
+            "bound_ms", "bound_by", "bytes", "operations", "bound_bytes_ms",
+            "bound_operations_ms", "bound_latency_ms",
+            "bound_with_latency_ms", "binds")},
+        "bound_given": {k: bound_given[k] for k in (
+            "bound_ms", "bound_by", "bound_bytes_ms", "bound_operations_ms",
+            "bound_latency_ms", "binds")},
         "library_ms": None,
     }
 

@@ -6,7 +6,10 @@ many independent single-lock ALock tables — the stream of
 n_threads, int32)``, bit for bit (``core/prng.py``) — applies it with K2
 and reports the share of threads in the critical section and the
 histogram of final program counters: the fairness statistic behind the
-Fig. 4 budget study.
+Fig. 4 budget study. On a CUDA device K2 draws that schedule itself from
+launch words derived on the host (``kernel.tick_drawn``): the
+``(n_tables, steps)`` schedule is never stored. ``schedule`` is the same
+stream in plain tensor code, what the CPU path and the checks use.
 
 >>> r = monte_carlo_cs_entries(6, 4, 40, (0, 0, 1, 1), seed=3,
 ...                            device="cpu")
@@ -31,14 +34,18 @@ from repro_torch.kernels.alock_tick.ref import alock_tick_ref
 SCHED_CHUNK_ELEMS = 1 << 25
 
 # "seconds" splits the wall time of monte_carlo_cs_entries() calls by
-# stage; device stages are closed by a synchronize on a CUDA device.
-# "launches" is K2's own launch counter.
+# stage; device stages are closed by a synchronize on a CUDA device. The
+# "schedule" stage is the schedule stream on the plain path and, on the
+# kernel path, the host's derivation of its launch words (the stream is
+# drawn inside K2, in "engine"); both also make the fresh tables.
+# "launches" is K2's own launch counter, "plan" its last launch's plan.
 _SECONDS = {"schedule": 0.0, "engine": 0.0, "aggregate": 0.0}
 
 
 def exec_stats() -> dict:
-    """Snapshot of {launches, seconds} since the last reset."""
-    return {"launches": _kernel.launches(), "seconds": dict(_SECONDS)}
+    """Snapshot of {launches, seconds, plan} since the last reset."""
+    return {"launches": _kernel.launches(), "seconds": dict(_SECONDS),
+            "plan": _kernel.last_plan()}
 
 
 def reset_exec_stats() -> None:
@@ -102,23 +109,28 @@ def monte_carlo_cs_entries(n_tables: int, n_threads: int, steps: int,
 
     ``cohorts`` has one entry per thread (0 local, 1 remote), shared by
     every table. ``backend='kernel'`` (the default on a CUDA device)
-    launches K2 with ``tile=min(128, n_tables)``; ``'plain'`` runs
-    ``ref.alock_tick_ref`` on ``device`` — the reference's
-    ``use_kernel=False``. Returns ``{"in_cs_frac": float,
+    launches K2 once, drawing the schedule inside the kernel
+    (``kernel.tick_drawn``, ``tile=min(128, n_tables)``); ``'plain'`` draws
+    ``schedule`` and runs ``ref.alock_tick_ref`` on ``device`` — the
+    reference's ``use_kernel=False``. Returns ``{"in_cs_frac": float,
     "final_pc_histogram": (14,) int32 tensor}``.
     """
     dev = resolve_device(device)
     backend = resolve_backend(backend, dev)
     t0 = _clock(dev)
-    sched = schedule(n_tables, steps, n_threads, seed, dev)
+    if backend == "kernel":
+        words = _kernel.draw_words(seed, n_threads, 0, steps)
+    else:
+        sched = schedule(n_tables, steps, n_threads, seed, dev)
     coh = torch.as_tensor(np.asarray(cohorts, np.int32), device=dev)
     tails, vic, pc, bud, nxt, prev = fresh_tables(n_tables, n_threads, dev)
     t1 = _clock(dev)
     if backend == "kernel":
-        out = _kernel.tick_kernel(
-            tails, vic, pc, bud, nxt, prev, sched,
-            coh.expand(n_tables, n_threads).contiguous(),
-            b_init=tuple(b_init), tile=min(128, n_tables))
+        out = _kernel.tick_drawn(
+            tails, vic, pc, bud, nxt, prev,
+            coh.expand(n_tables, n_threads).contiguous(), seed=seed,
+            steps=steps, b_init=tuple(b_init), tile=min(128, n_tables),
+            words=words)
     else:
         out = alock_tick_ref(tails, vic[:, 0], pc, bud, nxt, prev, sched,
                              coh, np.asarray(b_init, np.int32))

@@ -16,13 +16,16 @@ card. ``alock_tick_ref`` has the contract of the reference's oracle
 (``victim (Tab,)``, ``cohorts (T,)`` shared by every table, ``b_init
 (2,)``) and is a thin adapter over the same code. Both loop over the
 schedule in Python, so they are slow by construction; nothing on the main
-path calls them when a CUDA device is present.
+path calls them when a CUDA device is present. ``drawn_schedule_plain``
+is the plain mirror of the schedule the kernel draws itself from its
+launch words.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import machine as mc
+from repro_torch.core import prng
 
 
 def alock_transition(tails, victim, pc, budget, nxt, prev, tid, cohorts,
@@ -148,3 +151,39 @@ def alock_tick_ref(tails, victim, pc, budget, nxt, prev, sched, cohorts,
     cohorts = torch.as_tensor(cohorts, device=pc.device)
     return _run(tails, victim, pc, budget, nxt, prev, sched,
                 cohorts.to(torch.int32).expand(pc.shape), b_local, b_remote)
+
+
+def drawn_schedule_plain(words, n_tables: int, steps: int) -> torch.Tensor:
+    """What K2 draws in its drawn mode, element by element as the kernel
+    computes it, from its launch words (``kernel.DrawWords``): at the
+    64-bit counter ``c = (r0 + t) * pitch + i`` the lower bits ``lo`` (b1 ^
+    b2 of threefry2x32 under subkey ``(lo0, lo1)``) and, unless ``span``
+    is a power of two, the higher bits ``hi`` under ``(hi0, hi1)``; then
+    ``(hi % span * mult + lo % span) % span`` in uint32, each ``%`` by the
+    magic ``x - ((((x - h) >> 1) + h) >> shift) * span``, ``h =
+    umulhi(magic, x)``, or ``lo & (span - 1)`` for a power of two.
+    Returns ``(n_tables, steps)`` int32 on the CPU."""
+    m32 = 0xFFFFFFFF
+    t = torch.arange(n_tables, dtype=torch.int64)[:, None]
+    c = (words.r0 + t) * words.pitch + torch.arange(steps,
+                                                    dtype=torch.int64)[None]
+    c0, c1 = c >> 32, c & m32
+
+    def bits(k0, k1):
+        x0, x1 = prng.threefry2x32(k0, k1, c0, c1)
+        return x0 ^ x1
+
+    span = words.span
+    lo = bits(words.lo0, words.lo1)
+    if span & (span - 1) == 0:
+        return (lo & (span - 1)).to(torch.int32)
+
+    def mod(x):
+        # umulhi(magic, x) without a 64-bit overflow: magic = a * 2**16 + b
+        a, b = words.magic >> 16, words.magic & 0xFFFF
+        h = (a * x + ((b * x) >> 16)) >> 16
+        q = ((((x - h) & m32) >> 1) + h) >> words.shift
+        return (x - q * span) & m32
+
+    hi = bits(words.hi0, words.hi1)
+    return mod((mod(hi) * words.mult + mod(lo)) & m32).to(torch.int32)

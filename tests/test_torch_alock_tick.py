@@ -255,12 +255,16 @@ def test_shape_checks():
 
 
 def test_smem_budget():
-    # the path shape: 128 tables of 16 threads, 40 KB
-    assert tk.smem_bytes(16, 128) == 5 * 4 * 16 * 128
-    assert tk.tables_per_block(16, 128) == 128
-    # too many tables for one block: whole warps that fit
+    # the path shape: one warp of 32 tables of 16 threads a block (about
+    # one block per SM at 4,096 tables): barriers, 16-byte records (and a
+    # scratch record a table), cohorts, a ring of 4 stages of 64 steps
+    assert tk.smem_bytes(16, 128) == (64 + 16 * 17 * 32 + 4 * 16 * 32
+                                      + 4 * 4 * 32 * 68)
+    assert tk.tables_per_block(16, 128) == 32
+    # the tables of a block are whole warps of them
     per = tk.tables_per_block(200, 128)
     assert per % 32 == 0 and 0 < per < 128
-    assert tk.smem_bytes(200, 128) == 5 * 4 * 200 * per <= tk.SMEM_LIMIT
+    assert tk.smem_bytes(200, 128) == (64 + 16 * 201 * per + 4 * 200 * per
+                                       + 4 * 4 * per * 68) <= tk.SMEM_LIMIT
     with pytest.raises(ValueError, match="232,448 B of shared memory"):
         tk.smem_bytes(400, 128)
