@@ -72,21 +72,30 @@ per source, all started together), then prints one JSON object per phase:
               ragged tiles, an hd whose rows are not 16-byte aligned and
               (K3) an S that is a multiple of neither its q tile nor a kv
               stage, both dtypes; tolerances in ``ATT_TOL``
-  tensor_cores  each K3, K4 and K5 instantiation (kernel x dtype x padded
-              hd, 18 in all): its route (wgmma for bf16, 3xTF32 mma.sync for
-              f32), registers and spill bytes from this build's ``-Xptxas
-              -v``, and its HGMMA / HMMA count in ``cuobjdump --dump-sass``;
-              fails on a spill or a missing tensor-core instruction
+  tensor_cores  each K3, K4, K5 and K6 instantiation (K3-K5: kernel x
+              dtype x padded hd, 18; K6: the path shape's unguarded one and
+              the guarded one, 2; 20 in all): its route (wgmma for bf16,
+              3xTF32 mma.sync for f32), registers and spill bytes from this
+              build's ``-Xptxas -v``, and its HGMMA / HMMA count in
+              ``cuobjdump --dump-sass``; fails on a spill or a missing
+              tensor-core instruction
   kernel_check_ssd  K6 against its plain version, and ``ssd_forward``
               against the exact recurrence ``ssd_sequential``, at the
-              reference tests' shapes and the path shape (B=2, S=2048, H=16,
-              P=64, N=128, chunk 128), 2e-4
+              reference tests' shapes, the path shape (B=2, S=2048, H=16,
+              P=64, N=128, chunk 128), H = 6 (no multiple of the path's
+              head tile; also at tiles of 2, 3 and 6 heads, bit for bit the
+              plan's), chunk 64 and rows that are not 16-byte aligned,
+              2e-4; the C and Python shared-memory sizes of each plan; a
+              negative control (one element of b changed)
   float_timings  K3-K6, their plain versions and
               ``scaled_dot_product_attention`` forward and backward (the
               yardstick; nothing in the port calls it), CUDA events over 3
-              calls after a warm-up, with each kernel's bound, at the test
-              and path shapes (attention also in bf16), and K4 + K5 as one
-              ``flash_attention_bwd`` call against the SDPA backward
+              calls after a warm-up (K6 and its plain version over
+              ``SSD_REPS``), with each kernel's bound, at the test and path
+              shapes (attention also in bf16), K4 + K5 as one
+              ``flash_attention_bwd`` call against the SDPA backward, and
+              ``ssd_forward`` whole at the path shape (its glue: the whole
+              less K6)
   exemplar_path  ``mha_vjp`` forward and ``.backward()`` and ``ssd_forward``
               at the path shape with the default device and backend, launch
               counters set to 0 just before and read just after (K3, K4,
@@ -170,6 +179,8 @@ SSD_PATH = dict(B=2, S=2048, H=16, P=64, N=128, L=128)
 #: than the plain version's matmuls, so 1e-4; bf16 outputs 2e-2; SSD 2e-4.
 ATT_TOL = {"test": 2e-5, "path": 1e-4, "bf16": 2e-2}
 SSD_TOL = 2e-4
+#: calls K6, its plain version and ssd_forward are timed over
+SSD_REPS = 20
 
 # the lock-property path: monte_carlo_cs_entries at Fig. 5's 8 threads per
 # node (8 local + 8 remote), 4,096 single-lock tables, the simulator's
@@ -193,10 +204,11 @@ MOD_OPS = 6
 # published peaks of one H100 SXM (dense, full power limit)
 HBM_BYTES_PER_S = 3.35e12
 ALU32_OPS_PER_S = 67e12        # f32 rate outside the tensor cores (an FMA
-                               # counts two): K6's float work
+                               # counts two): K6's elementwise work
 BF16_OPS_PER_S = 989e12        # bf16 products on the tensor cores
 #: f32 products on the tensor cores as 3xTF32 (three TF32 products at
 #: 495e12 each), the least time the card can take for f32 attention work
+#: and K6's products
 TF32X3_OPS_PER_S = 495e12 / 3
 #: the libraries built beside the event loop's (one nvcc each, all at once)
 LIBRARIES = ("flash_attention", "flash_attention_bwd", "ssd_scan",
@@ -368,18 +380,30 @@ def attention_bound(kernel, B, H, S, hd, causal=True, window=None, elem=4):
 
 
 def ssd_bound(B, S, H, P, N, L):
-    """K6, f32: xd, dA, b, c in; y_diag, states, chunk_decay out. Per
-    (batch, chunk): c b^T over the lower triangle (shared by the heads);
-    per head the masked decay (an exp and a product per kept pair), W xd
-    over the triangle, the state weights and the state product."""
+    """K6, f32: xd, dA, b, c in; y_diag, states, chunk_decay out. The
+    three products at the tensor cores' 3xTF32 rate: per (batch, chunk)
+    c b^T over the lower triangle (shared by the heads), per head W xd over
+    the triangle and the state product. The elementwise work at the f32
+    rate outside the tensor cores: per head the masked decay (an exp and a
+    product per kept pair) and the state weights (a product per element of
+    xd). The two units work side by side, so the operations term is the
+    larger of the two times."""
     nc, tri = S // L, L * (L + 1) // 2
     nbytes = 4 * (2 * B * S * H * P + B * S * H + 2 * B * S * N
                   + B * nc * H * P * N + B * nc * H)
-    nops = B * nc * (2 * tri * N + H * (2 * tri + 2 * tri * P
-                                        + 2 * L * P * N + L * P))
-    row = bound_row(nbytes, nops, ALU32_OPS_PER_S)
-    row["shape"] = dict(B=B, S=S, H=H, P=P, N=N, chunk=L)
-    return row
+    products = B * nc * (2 * tri * N + H * (2 * tri * P + 2 * L * P * N))
+    elementwise = B * nc * H * (2 * tri + L * P)
+    prod_ms = products / TF32X3_OPS_PER_S * 1e3
+    elem_ms = elementwise / ALU32_OPS_PER_S * 1e3
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = max(prod_ms, elem_ms)
+    return {"bytes": nbytes, "operations": products + elementwise,
+            "operations_tensor_cores": products,
+            "operations_alu": elementwise, "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "bound_bytes_ms": b_ms, "bound_operations_ms": o_ms,
+            "bound_products_ms": prod_ms, "bound_elementwise_ms": elem_ms,
+            "shape": dict(B=B, S=S, H=H, P=P, N=N, chunk=L)}
 
 
 def draw_ops(T):
@@ -455,6 +479,23 @@ def attention_inputs(torch, dev, B, H, S, hd, dtype, seed):
             for _ in range(4)]
 
 
+def ssd_at_tile(torch, sk, _build, ops, hb):
+    """K6 at head tile ``hb`` through its C entry (``ssd_kernel`` always
+    takes the plan's tile), to check that the tile changes no bit; counts
+    no launch."""
+    xd, b = ops[0], ops[2]
+    B, nc, L, H, P = xd.shape
+    N = b.shape[-1]
+    y = torch.empty_like(xd)
+    st = torch.empty((B, nc, H, P, N), device=xd.device)
+    dec = torch.empty((B, nc, H), device=xd.device)
+    lib = sk.load()
+    err = lib.ssd_launch(*(t.data_ptr() for t in (*ops, y, st, dec)),
+                         B, nc, L, H, P, N, hb, _build.stream_of(xd))
+    _build.check_launch(lib, err, f"SSD intra-chunk kernel at hb={hb}")
+    return y, st, dec
+
+
 def ssd_inputs(torch, dev, B, S, H, P, N, seed):
     """xh, dt, a, b, c as the reference tests make them (softplus dt,
     negative a), from a seeded generator on the card."""
@@ -520,43 +561,55 @@ def sass_counts(library):
     return counts
 
 
-#: the attention kernels' route per input dtype
+#: the float kernels' route per input dtype (K6 takes f32 only)
 ATT_ROUTES = {"bfloat16": "wgmma m64nNk16 (bf16 in, f32 accumulators)",
               "float32": "mma.sync m16n8k8 3xTF32 (f32 accumulators)"}
 #: kernel function -> its name in the ``kernels`` line, per library
-ATT_FUNCTIONS = {"flash_attention": {"flash_fwd_kernel": "K3"},
-                 "flash_attention_bwd": {"dq_kernel": "K4",
-                                         "dkv_kernel": "K5"}}
+TC_FUNCTIONS = {"flash_attention": {"flash_fwd_kernel": "K3"},
+                "flash_attention_bwd": {"dq_kernel": "K4",
+                                        "dkv_kernel": "K5"},
+                "ssd_scan": {"ssd_kernel": "K6"}}
+#: instantiations the tensor_cores phase expects: K3, K4, K5 x 2 dtypes x
+#: 3 padded hd, and K6's two (FULL, the path shape's, without column
+#: guards, and the guarded one for every other shape)
+TC_INSTANCES = 20
 
 
-def tensor_core_report(fk, fkb, _build):
-    """K3's, K4's and K5's instantiations (kernel x dtype x padded hd, 18):
-    route, registers and spill bytes (the ptxas report of each library's
-    build) and their tensor-core instructions in its SASS. ``ok`` when all
-    18 are there, none spills and, where ``cuobjdump`` exists, each has its
-    route's instructions (HGMMA for bf16, HMMA for f32)."""
+def tensor_core_report(mods, _build):
+    """The instantiations of K3, K4, K5 (kernel x dtype x padded hd) and
+    K6 (FULL or not, f32), ``mods`` the wrapper module of each library in
+    ``TC_FUNCTIONS``: route, registers and spill bytes (the ptxas report of
+    each library's build) and their tensor-core instructions in its SASS.
+    ``ok`` when all ``TC_INSTANCES`` are there, none spills and, where
+    ``cuobjdump`` exists, each has its route's instructions (HGMMA for
+    bf16, HMMA for f32)."""
     rows, logs, sass_found = [], True, True
-    for stem, mod in (("flash_attention", fk), ("flash_attention_bwd", fkb)):
-        lib = _build.build(_build.CSRC / f"{stem}.cu", stem, mod.NVCC_FLAGS)
+    for stem, names in TC_FUNCTIONS.items():
+        lib = _build.build(_build.CSRC / f"{stem}.cu", stem,
+                           mods[stem].NVCC_FLAGS)
         log = _build.BUILD_LOG.get(stem)
         logs = logs and bool(log)
         regs = ptxas_report(log) if log else {}
         sass = sass_counts(lib) or {}
         sass_found = sass_found and bool(sass)
-        names = ATT_FUNCTIONS[stem]
         for fn in sorted(set(regs) | set(sass)):
-            # a mangled template name: its length, the name, then "I"
-            kern = [k for n, k in names.items() if f"{len(n)}{n}I" in fn]
+            # a mangled name: its length, the name, then "I" (a template)
+            # or "E" (the end of the nested name)
+            kern = [k for n, k in names.items()
+                    if re.search(rf"{len(n)}{n}[IE]", fn)]
             hd = re.search(r"Li(\d+)E", fn)
-            if not (kern and hd):
+            if not kern or (kern[0] != "K6" and not hd):
                 continue
             dtype = "bfloat16" if "bfloat16" in fn else "float32"
-            rows.append({"kernel": kern[0], "dtype": dtype,
-                         "hd_pad": int(hd.group(1)),
-                         "route": ATT_ROUTES[dtype], **regs.get(fn, {}),
-                         **sass.get(fn, {})})
+            row = {"kernel": kern[0], "dtype": dtype,
+                   "hd_pad": int(hd.group(1)) if hd else None,
+                   "route": ATT_ROUTES[dtype], **regs.get(fn, {}),
+                   **sass.get(fn, {})}
+            if kern[0] == "K6":
+                row["full"] = "ILb1E" in fn
+            rows.append(row)
     op = {"bfloat16": "HGMMA", "float32": "HMMA"}
-    ok = len(rows) == 18 and all(
+    ok = len(rows) == TC_INSTANCES and all(
         r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
         and (not sass_found or r.get(op[r["dtype"]], 0) > 0) for r in rows)
     return {"ptxas_report": logs, "sass": sass_found, "ok": ok,
@@ -679,10 +732,12 @@ def float_kernel_phases(torch, dev):
     if not att_ok:
         raise SystemExit("kernel_check_attention: a CUDA kernel and its "
                          "plain version disagree")
-    tc = tensor_core_report(fk, fkb, _build)
+    tc = tensor_core_report({"flash_attention": fk,
+                             "flash_attention_bwd": fkb, "ssd_scan": sk},
+                            _build)
     emit({"phase": "tensor_cores", **tc})
     if not tc["ok"]:
-        raise SystemExit("tensor_cores: a K3/K4/K5 instantiation is "
+        raise SystemExit("tensor_cores: a K3/K4/K5/K6 instantiation is "
                          "missing, spills or lacks its route's tensor-core "
                          "instructions")
 
@@ -696,24 +751,42 @@ def float_kernel_phases(torch, dev):
                 c.reshape(B, nc, L, N))
 
     ssd_cases, err6 = [], 0.0
-    ssd_shapes = (("test", SSD_TEST), ("path", SSD_PATH),
-                  ("test", dict(B=2, S=64, H=4, P=16, N=8, L=16)),
-                  ("test", dict(B=2, S=32, H=8, P=8, N=4, L=8)))
-    for i, (name, shp) in enumerate(ssd_shapes):
+    # the reference tests' shapes, the path shape, an H that is no multiple
+    # of the path's head tile (also at tiles of 2, 3 and 6 heads: an odd
+    # count of double-buffered heads), L = 64, rows that are not 16-byte
+    # aligned (P, N not multiples of 4: element copies; L, P, N not
+    # multiples of the mma tiles), and H = 32 (Mamba-2 370m's: a tile of
+    # all 32 heads passes shared memory; the plan takes 8, also run at 16)
+    ssd_shapes = (("test", SSD_TEST, ()), ("path", SSD_PATH, ()),
+                  ("test", dict(B=2, S=64, H=4, P=16, N=8, L=16), ()),
+                  ("test", dict(B=2, S=32, H=8, P=8, N=4, L=8), ()),
+                  ("heads6", dict(B=2, S=256, H=6, P=64, N=128, L=128),
+                   (2, 3, 6)),
+                  ("chunk64", dict(B=2, S=512, H=4, P=64, N=128, L=64), ()),
+                  ("ragged", dict(B=1, S=200, H=2, P=18, N=10, L=40), (2,)),
+                  ("heads32", dict(B=2, S=2048, H=32, P=64, N=128, L=128),
+                   (16,)))
+    for i, (name, shp, tiles) in enumerate(ssd_shapes):
         B, S, H, P, N, L = (shp[x] for x in "BSHPNL")
         xs = ssd_inputs(torch, dev, B, S, H, P, N, 200 + i)
         ops = chunked(*xs, L)
+        want = ssd_chunk_ref(*ops)
         got = sk.ssd_kernel(*ops)
-        err, ok = deviation(torch, got, ssd_chunk_ref(*ops), SSD_TOL)
+        plan = sk.last_plan()
+        err, ok = deviation(torch, got, want, SSD_TOL)
+        for hb in tiles:                 # other head tiles, the same bits
+            other = ssd_at_tile(torch, sk, _build, ops, hb)
+            ok = ok and all(torch.equal(a, b) for a, b in zip(got, other))
         err6 = max(err6, err)
         y, h = ssd_forward(*xs, chunk=L)
         err_f, ok_f = deviation(torch, (y, h), ssd_sequential(*xs), SSD_TOL)
-        ssd_cases.append({"case": name, "shape": shp, "max_abs_err": err,
-                          "ok": ok, "forward_vs_sequential_max_abs_err":
-                          err_f, "forward_ok": ok_f,
-                          "smem_bytes": sk.smem_bytes(L, P, N),
-                          "smem_agrees": sk.load().ssd_smem_bytes(L, P, N)
-                          == sk.smem_bytes(L, P, N)})
+        c_smem = sk.load().ssd_smem_bytes(L, P, N, plan["hb"])
+        ssd_cases.append({"case": name, "shape": shp, "plan": plan,
+                          "head_tiles_equal": list(tiles),
+                          "max_abs_err": err, "ok": ok,
+                          "forward_vs_sequential_max_abs_err": err_f,
+                          "forward_ok": ok_f, "smem_bytes": c_smem,
+                          "smem_agrees": c_smem == plan["smem_bytes"]})
     # control, as for K4 and K5: one element of b changed by 1e-3
     ops = chunked(*ssd_inputs(torch, dev, 1, 32, 2, 8, 4, 299), 8)
     b2 = ops[2].clone()
@@ -772,19 +845,31 @@ def float_kernel_phases(torch, dev):
             shape=timings[("K4", name)]["shape"])
     for name, shp in (("test", SSD_TEST), ("path", SSD_PATH)):
         B, S, H, P, N, L = (shp[x] for x in "BSHPNL")
-        ops = chunked(*ssd_inputs(torch, dev, B, S, H, P, N, 302), L)
+        xs = ssd_inputs(torch, dev, B, S, H, P, N, 302)
+        ops = chunked(*xs, L)
         timings[("K6", name)] = dict(
-            ms=cuda_ms(torch, lambda: sk.ssd_kernel(*ops)),
-            plain_ms=cuda_ms(torch, lambda: ssd_chunk_ref(*ops)),
-            library_ms=None, **ssd_bound(B, S, H, P, N, L))
-    emit({"phase": "float_timings", "reps": 3,
+            ms=cuda_ms(torch, lambda: sk.ssd_kernel(*ops), SSD_REPS),
+            plain_ms=cuda_ms(torch, lambda: ssd_chunk_ref(*ops), SSD_REPS),
+            library_ms=None, plan=sk.last_plan(), reps=SSD_REPS,
+            **ssd_bound(B, S, H, P, N, L))
+    # ssd_forward whole: K6 plus the glue (operands, the inter-chunk loop
+    # and the final einsum, plain torch as in the reference)
+    fwd_ms = cuda_ms(torch, lambda: ssd_forward(*xs, chunk=L), SSD_REPS)
+    timings[("ssd_forward", "path")] = dict(
+        ms=fwd_ms, glue_ms=fwd_ms - timings[("K6", "path")]["ms"],
+        reps=SSD_REPS, shape=timings[("K6", "path")]["shape"])
+    emit({"phase": "float_timings", "reps": 3, "ssd_reps": SSD_REPS,
           "note": "CUDA events over 3 calls after a warm-up; causal, no "
                   "window; library_ms: scaled_dot_product_attention "
                   "forward (K3) and its backward, dq, dk and dv in one "
                   "call (K4, K5); plain_ms of K4 and K5: one "
                   "flash_bwd_plain call (dq, dk and dv); K4+K5: one "
                   "flash_attention_bwd call (K4 then K5), bound the sum "
-                  "of theirs",
+                  "of theirs; K6, its plain version and ssd_forward over "
+                  "reps calls (a K6 launch is shorter than the wrapper's "
+                  "host time, and the first call's start, idle on the "
+                  "card, is shared by more calls); ssd_forward: the whole "
+                  "call at the path shape, glue_ms = its ms - K6's",
           "rows": [dict(kernel=kern, at=name, **row)
                    for (kern, name), row in timings.items()]})
 
@@ -853,11 +938,10 @@ def float_kernel_phases(torch, dev):
                "library_ms": path["library_ms"], "shape": path["shape"],
                "at_other_shapes": {n: r for (k2, n), r in timings.items()
                                    if k2 == kern and n != "path"}}
-        if kern in ("K3", "K4", "K5"):
-            rec["tensor_cores"] = {
-                "routes": ATT_ROUTES,
-                "instances": [r for r in tc["instances"]
-                              if r["kernel"] == kern]}
+        rec["tensor_cores"] = {
+            "routes": ATT_ROUTES if kern != "K6" else
+            {"float32": ATT_ROUTES["float32"]},
+            "instances": [r for r in tc["instances"] if r["kernel"] == kern]}
         records.append(rec)
     return records
 
@@ -1236,7 +1320,9 @@ def main():
     # -- build: every library at once, one nvcc per source -------------------
     t0 = time.perf_counter()
     from repro_torch.kernels.flash_attention import kernel_bwd
-    flags = {"flash_attention_bwd": kernel_bwd.NVCC_FLAGS}
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    flags = {"flash_attention_bwd": kernel_bwd.NVCC_FLAGS,
+             "ssd_scan": sk.NVCC_FLAGS}
     libs = _build.build_all(
         [(el_kernel.SOURCE, "event_loop", el_kernel.NVCC_FLAGS)]
         + [(_build.CSRC / f"{stem}.cu", stem, flags.get(stem, _build.FLAGS))

@@ -141,9 +141,59 @@ def test_cuda_tensors_raise_without_cuda(monkeypatch):
 
 def test_shared_memory_budget():
     """One chunk's tiles at the source's own width (L = 128, P = 64,
-    N = 128) fit a block; a chunk that cannot raises, naming the fix."""
-    assert sk.smem_bytes(128, 64, 128) == 4 * (128 + 128 * 129 + 128 * 64
-                                               + 32 * 128 + 32 * 128)
-    assert sk.smem_bytes(128, 64, 128) <= 227 * 1024
+    N = 128) fit a block: b's big and small TF32 halves (c's rows until
+    c b^T is formed), two xd buffers, each head's cumulative sum and state
+    weights and a tile counter; a chunk that cannot raises, naming the
+    fix."""
+    assert sk.smem_bytes(128, 64, 128, 4) == 4 * (2 * 128 * 132
+                                                  + 2 * 128 * 68
+                                                  + 2 * 4 * 128 + 4)
+    assert sk.smem_bytes(128, 64, 128, 4) <= 227 * 1024
     with pytest.raises(ValueError, match="shorter chunk"):
         sk.smem_bytes(256, 64, 128)
+
+
+def test_plan_fills_the_card_at_the_path_shape():
+    """B=2, S=2048 (nc=16), H=16, L=128, P=64, N=128: the largest head
+    tile that keeps the SMs busy, c b^T shared by 4 heads, 128 CTAs on
+    132 SMs in one wave, within a block's shared memory."""
+    plan = sk.ssd_plan(2, 16, 16, 128, 64, 128)
+    assert plan.hb == 4 and plan.ctas == 128 >= 120 and plan.waves == 1
+    assert plan.smem_bytes == sk.smem_bytes(128, 64, 128, 4) <= 227 * 1024
+    assert plan.as_dict()["hb"] == 4
+
+
+@pytest.mark.parametrize("B,nc,H,L,P,N", [(2, 2, 6, 128, 64, 128),
+                                          (2, 64, 6, 32, 32, 16),
+                                          (2, 4, 1, 64, 64, 128),
+                                          (1, 1, 1, 8, 8, 4),
+                                          (2, 16, 32, 128, 64, 128),
+                                          (2, 16, 64, 128, 64, 128),
+                                          (66, 2, 32, 128, 64, 128)])
+def test_plan_takes_any_head_count(B, nc, H, L, P, N):
+    """H = 6 (no multiple of the path's tile 4), H = 1 and head counts
+    whose whole tile would pass a block's shared memory at the path's
+    widths (H = 32, Mamba-2 370m's, and 64) are planned: the tile divides
+    H and fits, no wave is emptier than the best fitting tile's."""
+    plan = sk.ssd_plan(B, nc, H, L, P, N)
+    assert H % plan.hb == 0 and plan.ctas == B * nc * H // plan.hb
+    assert plan.waves == -(-plan.ctas // 132)
+    assert plan.smem_bytes == sk.smem_bytes(L, P, N, plan.hb) <= 227 * 1024
+
+    def fits(d):
+        try:
+            return sk.smem_bytes(L, P, N, d) > 0
+        except ValueError:
+            return False
+    best = max(B * nc * (H // d) / (-(-B * nc * (H // d) // 132) * 132)
+               for d in range(1, H + 1) if H % d == 0 and fits(d))
+    assert plan.ctas / (plan.waves * 132) == best
+
+
+@pytest.mark.parametrize("L,P,N", [(256, 64, 128), (160, 8, 8),
+                                   (128, 64, 320)])
+def test_plan_raises_where_a_chunk_cannot_fit(L, P, N):
+    """Chunks above 128 steps (c b^T stays in registers) or whose tiles
+    pass a block's shared memory raise, naming the fix."""
+    with pytest.raises(ValueError, match="shorter chunk"):
+        sk.ssd_plan(2, 4, 8, L, P, N)
