@@ -64,6 +64,23 @@ per source, all started together), then prints one JSON object per phase:
               at 32 seeds x 150,000 events with the default device and
               backend, counters set to 0 just before each and read just
               after: launches, seconds by stage, events/s, knee rows
+  sharded     the Fig. 5 grid again through the sharded layouts:
+              ``Experiment.run()`` with ``ExecOptions(devices=1, chunk=32)``
+              and ``chunk=40`` (a trimmed trailing superchunk in every
+              bucket), and ``sweep(devices=[cuda:0, cuda:0])`` (two shards
+              a bucket on the one card); counters set to 0 just before each
+              and read just after: every replica's outputs equal
+              main_path's (by digest), dispatches equal the sum over the 33
+              buckets of popcount(units), one launch a shard; wall, seconds
+              by stage and peak device memory of each
+  pairs       ``run_events_pairs`` (the hi/lo int32 output contract) by the
+              kernel at the widest Fig. 5 bucket (events cut to 3,000) and
+              at the alock open-loop-ramp bucket (1,500 events), one launch
+              each: ``i32pair.pack`` of its pairs equals ``run_events``
+              (``torch.equal``), and its pairs equal the plain version's
+  coord_stress  ``run_scenario("coord-stress", n_seeds=2, n_events=30000)``
+              with the default options (host threads only) twice: rows,
+              seconds, and the fields the seed fixes equal in both runs
   kernel_check_attention  K3 (forward), K4 (dq) and K5 (dk, dv) against
               their plain versions on the card, f32 and bf16, every mask
               case (causal or not, with or without a window), at the test
@@ -1280,6 +1297,164 @@ def tick_phases(torch, dev, np):
     }
 
 
+def bucket_rows(workloads, n_seeds):
+    """Rows of each shape bucket a sweep of ``workloads`` makes."""
+    from repro_torch.core import batch
+    rows = {}
+    for w in dict.fromkeys(workloads):
+        key = batch.shape_key(w, N_EVENTS)
+        rows[key] = rows.get(key, 0) + n_seeds
+    return list(rows.values())
+
+
+def result_digests(np, pairs):
+    """SHA-256 of every array of each ``(name, BatchResult)``."""
+    return {name: hashlib.sha256(b"".join(
+        np.ascontiguousarray(a).tobytes() for a in (
+            br.seeds, br.ops, br.sim_ns, br.throughput_mops, br.lat_ns,
+            br.per_thread_ops, br.reacquires, br.passes))).hexdigest()
+        for name, br in pairs}
+
+
+def sharded_phases(torch, np, batch, exp, res, dev):
+    """The Fig. 5 grid ``exp`` through the sharded layouts, each against
+    main_path's results ``res``: dispatches follow the superchunk formula,
+    one K1 launch a shard, every replica's arrays the same bits."""
+    from repro_torch.experiments import ExecOptions, Experiment
+    from repro_torch.parallel import sharding
+    card = torch.device("cuda", torch.cuda.current_device())
+    want = result_digests(np, [(w, res[w]) for w in exp.workloads])
+    rows = bucket_rows(exp.workloads, exp.n_seeds)
+    layouts = [("ExecOptions(devices=1, chunk=32)", 1, 32),
+               ("ExecOptions(devices=1, chunk=40)", 1, 40),
+               ("sweep(devices=[cuda:0, cuda:0])", 2, None)]
+    for name, D, chunk in layouts:
+        dispatches = sum(len(sharding.superchunks(B, D, chunk))
+                         for B in rows)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        batch.reset_exec_stats()             # every launch count to 0
+        t0 = time.perf_counter()
+        if D == 1:
+            run = Experiment("fig5", n_seeds=exp.n_seeds,
+                             n_events=exp.n_events,
+                             options=ExecOptions(devices=1, chunk=chunk))
+            for lbl, w, _ in res:
+                run.add(w, label=lbl)
+            got = [(w, br) for _, w, br in run.run()]
+        else:
+            ws = list(dict.fromkeys(exp.workloads))
+            got = list(zip(ws, batch.sweep(
+                ws, n_seeds=exp.n_seeds, n_events=exp.n_events,
+                devices=[card, card])))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = batch.exec_stats()           # read just after
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        have = result_digests(np, got)
+        problems = []
+        if any(have[w] != want[w] for w in have) or len(have) != len(set(
+                exp.workloads)):
+            problems.append("outputs differ from main_path's")
+        if stats["dispatches"] != dispatches:
+            problems.append(f"dispatches {stats['dispatches']} != "
+                            f"{dispatches}")
+        if stats["launches"] != dispatches * D or stats["launches"] <= 0:
+            problems.append(f"launches {stats['launches']} != "
+                            f"{dispatches * D}")
+        emit({"phase": "sharded", "layout": name, "devices": D,
+              "chunk": chunk, "buckets": len(rows),
+              "bucket_rows": sorted(set(rows)), "equal": not problems,
+              "dispatches": stats["dispatches"],
+              "dispatches_formula": dispatches,
+              "kernel_launches": stats["launches"], "wall_seconds": wall,
+              "seconds": stats["seconds"],
+              "peak_device_memory_mib": peak_mib,
+              "smem_plan_last": stats["smem_plan"], "problems": problems})
+        if problems:
+            raise SystemExit(f"sharded {name}: " + "; ".join(problems))
+
+
+def pairs_phase(torch, cases):
+    """``run_events_pairs`` by K1 against ``run_events`` and against the
+    plain version's pairs, for each ``(name, alg, T, N, K, n_events,
+    operands on the card)`` of ``cases``."""
+    from repro_torch.core.sim import topology
+    from repro_torch.kernels.event_loop import i32pair
+    from repro_torch.kernels.event_loop import kernel as el_kernel
+    from repro_torch.kernels.event_loop.ops import (precompute_draws,
+                                                    precompute_plan,
+                                                    run_events,
+                                                    run_events_pairs)
+    rows = []
+    for name, alg, T, N, K, n_events, wl in cases:
+        dev = wl.seed.device
+        tn, ln, _ = topology(alg, N, T // N, K)
+        streams = precompute_draws(wl.seed, wl.edges, wl.zcdf, n_events, N,
+                                   K // N, device=dev)
+        plan = (precompute_plan(wl, n_events, device=dev)
+                if wl.arr_fix.shape[-1] else None)
+        kw = dict(device=dev, streams=streams, plan=plan)
+        el_kernel.reset_launches()           # K1's count to 0
+        got = run_events_pairs(alg, T, N, K, n_events, wl, tn, ln,
+                               backend="kernel", **kw)
+        torch.cuda.synchronize()
+        launches = el_kernel.launches()      # read just after
+        ints = run_events(alg, T, N, K, n_events, wl, tn, ln,
+                          backend="kernel", **kw)
+        plain = run_events_pairs(alg, T, N, K, n_events, wl, tn, ln,
+                                 backend="plain", **kw)
+
+        def flat(out):
+            return [a for o in out
+                    for a in (o if isinstance(o, tuple) else (o,))]
+        packed = [i32pair.pack(o) if isinstance(o, tuple) else o
+                  for o in got]
+        equal_ints = len(packed) == len(ints) and all(
+            torch.equal(a, b) for a, b in zip(packed, ints))
+        equal_plain = len(flat(got)) == len(flat(plain)) and all(
+            torch.equal(a, b) for a, b in zip(flat(got), flat(plain)))
+        pair_dtypes = sorted({str(a.dtype) for a in flat(got)})
+        rows.append({"case": name, "alg": alg, "T": T, "N": N, "K": K,
+                     "B": int(wl.seed.shape[0]), "n_events": n_events,
+                     "outputs": len(got), "launches": launches,
+                     "pack_equals_run_events": equal_ints,
+                     "equals_plain_pairs": equal_plain,
+                     "dtypes": pair_dtypes,
+                     "t_end_max": int(ints[3].max()),
+                     "ops": int(ints[0].sum())})
+    ok = all(r["pack_equals_run_events"] and r["equals_plain_pairs"]
+             and r["launches"] == 1 and r["dtypes"] == ["torch.int32"]
+             and r["ops"] > 0 for r in rows)
+    emit({"phase": "pairs", "tolerance": 0, "equal": ok, "cases": rows})
+    if not ok:
+        raise SystemExit(f"pairs: the hi/lo outputs disagree: {rows}")
+
+
+COORD_FIXED = ("name", "ops", "lease_grants", "lease_steals",
+               "phase_members")
+
+
+def coord_stress_phase(run_scenario):
+    """The registry's coord-stress scenario twice with the default options
+    (host threads; no device work): the seed-fixed fields must agree."""
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        rows = run_scenario("coord-stress", n_seeds=2, n_events=30_000)
+        runs.append((time.perf_counter() - t0, rows))
+    fixed = [[{k: r[k] for k in COORD_FIXED} for r in rows]
+             for _, rows in runs]
+    ok = (fixed[0] == fixed[1] and len(fixed[0]) == 2
+          and all(r["ops"] > 0 and r["lease_grants"] > 0
+                  for r in runs[0][1]))
+    emit({"phase": "coord_stress", "n_seeds": 2, "n_events": 30_000,
+          "agree": ok, "seconds": [t for t, _ in runs],
+          "rows": runs[0][1], "second_run_rows": runs[1][1]})
+    if not ok:
+        raise SystemExit(f"coord_stress: two runs disagree: {fixed}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1937,6 +2112,19 @@ def main():
           "problems": problems})
     if problems:
         raise SystemExit("main_path: " + "; ".join(problems))
+
+    # -- sharded: the same grid through the sharded and chunked layouts ----
+    sharded_phases(torch, np, batch, exp, res, dev)
+
+    # -- pairs: the hi/lo int32 output contract through K1 ------------------
+    pair_cases = (("closed", "alock", 160, 20, 1000, EV_CUT,
+                   batched(wide_ws, EV_CUT, N_SEEDS)),
+                  ("open", "alock", OT, ON, OK, OPEN_EV_CHECK,
+                   batched(OPEN_WS, OPEN_EV_CHECK, N_SEEDS)))
+    pairs_phase(torch, pair_cases)
+
+    # -- coord_stress: the threaded coordination plane (host only) ---------
+    coord_stress_phase(run_scenario)
 
     # -- main_path_open: the registry's open-loop scenarios -----------------
     open_launches = 0

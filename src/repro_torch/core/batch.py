@@ -29,10 +29,22 @@ memory free when the sweep starts): past it, the oldest is forced before
 the next is issued. On the CPU each bucket is forced before the next is
 lowered, one after another as before.
 
-``exec_stats()`` counts engine dispatches and kernel launches, times the
-stages and shows the event-loop kernel's last shared-memory plan. Sharded
-dispatch (``devices=`` / ``chunk=``) is not ported yet and raises
-``NotImplementedError``.
+``sweep(..., devices=, chunk=)`` turns on the sharded layout of the
+reference (``repro/core/batch.py:353-406``): a bucket's rows are measured in
+units of ``chunk`` rows per device, the unit count is split greedily into
+power-of-two superchunks (``repro_torch.parallel.sharding``), and each
+superchunk is one dispatch of ``D`` equal shards, one per listed device,
+each its own upload, draws (and plan) and kernel launch on that device's
+stream pool. Rows are padded only to a multiple of ``D`` (the last row
+repeated, cut off after) and the last superchunk is trimmed. Every
+superchunk of every bucket is issued before any is forced, within each
+device's in-flight bound; they are forced in dispatch order and their rows
+joined in row order before a bucket's results are made. Draws are keyed
+per row by the seed, so every layout gives the same bits.
+
+``exec_stats()`` counts engine dispatches (one per bucket unsharded, one
+per superchunk sharded) and kernel launches (one per shard), times the
+stages and shows the event-loop kernel's last shared-memory plan.
 """
 from __future__ import annotations
 
@@ -52,14 +64,11 @@ from repro_torch.kernels.event_loop import kernel as _kernel
 from repro_torch.kernels.event_loop import smem_plan as _smem_plan
 from repro_torch.kernels.event_loop.ops import (precompute_draws,
                                                 precompute_plan, run_events)
+from repro_torch.parallel import sharding as _sharding
 from repro_torch.traffic.metrics import serving_summary
 from repro_torch.workloads import (OPERAND_DTYPES, Workload,
                                    WorkloadOperands, as_workload, lower,
                                    pad_phases, to_device)
-
-SHARDED_MSG = (
-    "sharded dispatch (sweep(devices=, chunk=)) is not ported yet — ROADMAP "
-    "Queue A, item 'sweep(devices=, chunk=)'")
 
 #: CUDA streams the buckets of a sweep are issued on, in turn
 N_STREAMS = 8
@@ -69,17 +78,23 @@ N_STREAMS = 8
 IN_FLIGHT_SHARE = 0.5
 
 # -- execution statistics ----------------------------------------------------
-# A "dispatch" is one engine call covering a whole bucket; "launches" is the
-# event-loop kernel's own launch counter (kernels/event_loop/kernel.py),
-# read here so a run can show that its buckets went through the kernel.
+# A "dispatch" is one engine call covering a whole bucket, or, sharded, one
+# superchunk (its D shards together, as the reference's _note_call counts);
+# "launches" is the event-loop kernel's own launch counter
+# (kernels/event_loop/kernel.py), one per shard, read here so a run can show
+# that its buckets went through the kernel. The reference's "compiles" has
+# no counterpart: the kernel library is built once per source hash.
 # "seconds" by stage: "lower" (host: lowering and packing the buckets) and
 # "aggregate" (host: copy back and BatchResults, after the bucket's device
 # work is done) are host-clock sums; "draws" (operand upload, draw stream,
 # arrival plan) and "engine" (the event loop) are, on a CUDA device, the
-# union of the buckets' intervals between CUDA events recorded on their
-# streams (time during which at least one bucket was in that stage; the
-# two overlap one another and the host stages), on the CPU host-clock sums;
-# "engine_only" is the part of "engine" during which no bucket was in its
+# union of the shards' intervals between CUDA events recorded on their
+# streams (time during which at least one shard was in that stage; the
+# two overlap one another and the host stages), on the CPU host-clock sums.
+# Each device's events are timed against that device's own origin event;
+# the origins are recorded one after another as the sweep starts, so the
+# devices' intervals share one timeline to within those few microseconds;
+# "engine_only" is the part of "engine" during which no shard was in its
 # draws (what the engine adds beside the draws); "wall" is the host clock
 # around each sweep() call. "smem_plan" is the event-loop kernel's last
 # shared-memory plan (None before any launch).
@@ -233,12 +248,12 @@ class BatchResult(NamedTuple):
 
 
 def _mark(dev):
-    """A point on a bucket's timeline: a CUDA event recorded on the current
-    stream, or the host clock on the CPU (where every stage is
+    """A point on a shard's timeline: a CUDA event recorded on ``dev``'s
+    current stream, or the host clock on the CPU (where every stage is
     synchronous)."""
     if dev.type == "cuda":
         ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
+        ev.record(torch.cuda.current_stream(dev))
         return ev
     return time.perf_counter()
 
@@ -288,9 +303,9 @@ def _stream_pool(dev):
 
 
 def _in_flight_budget(dev) -> int:
-    """Bytes the issued but unforced buckets may hold: on the CPU none
-    (each bucket is forced before the next one), on a CUDA device
-    ``IN_FLIGHT_SHARE`` of its free memory."""
+    """Bytes the issued but unforced shards may hold on ``dev``: on the
+    CPU none (each dispatch is forced before the next one), on a CUDA
+    device ``IN_FLIGHT_SHARE`` of its free memory."""
     if dev.type != "cuda":
         return 0
     free, _ = torch.cuda.mem_get_info(dev)
@@ -298,8 +313,8 @@ def _in_flight_budget(dev) -> int:
 
 
 def _bucket_bytes(key, B: int) -> int:
-    """Device bytes one bucket of ``B`` replicas holds from issue to force:
-    its draw streams, arrival plan and times, and outputs."""
+    """Device bytes ``B`` replicas of a bucket hold from issue to force:
+    their draw streams, arrival plan and times, and outputs."""
     alg, T, _, _, n_events, R = key
     n_draws = 4 if alg == "alock-rw" else 3
     per_replica = (4 * n_draws * n_events + 8 * LAT_SAMPLES + 4 * T + 24
@@ -316,21 +331,39 @@ def _upload(a, dev, dtype) -> torch.Tensor:
     return t.pin_memory().to(dev, non_blocking=True)
 
 
-class _Issued(NamedTuple):
-    """A bucket whose device work is enqueued, with what forcing it needs."""
-    key: tuple
-    idxs: list
-    seeds: np.ndarray        # (C, S)
+class _Shard(NamedTuple):
+    """One shard's enqueued device work."""
+    dev: torch.device
     stream: object           # torch.cuda.Stream, or None on the CPU
     out: tuple               # the engine's device outputs
     marks: tuple             # (draws start, engine start, engine end)
 
 
-def _issue_bucket(key, idxs, seeds, thread_node, lock_node,
-                  wl: WorkloadOperands, backend: str, dev, stream) -> _Issued:
-    """Enqueue one flattened bucket (B rows): upload its operands, draw
-    its stream (and plan), launch its engine call. ``wl`` leaves (numpy)
-    carry the flattened (workload x seed) axis B."""
+class _Bucket:
+    """A bucket in flight: what its results need, and the host rows of its
+    superchunks forced so far, in row order."""
+
+    def __init__(self, key, idxs, seeds, pending: int):
+        self.key = key
+        self.idxs = idxs
+        self.seeds = seeds                    # (C, S)
+        self.pending = pending                # dispatches not yet forced
+        self.parts: list = []                 # forced shards' host outputs
+
+
+class _Issued(NamedTuple):
+    """A dispatch — a whole bucket, or one superchunk of a sharded one —
+    whose shards are enqueued."""
+    bucket: _Bucket
+    shards: list
+    need: dict               # device -> bytes its shards hold until forced
+
+
+def _issue_shard(key, thread_node, lock_node, wl: WorkloadOperands,
+                 backend: str, dev, stream) -> _Shard:
+    """Enqueue one shard (its rows of a bucket) on ``dev``: upload its
+    operands, draw its stream (and plan), launch its engine call. ``wl``
+    leaves (numpy) carry the shard's rows."""
     alg, T, N, K, n_events, R = key
     ctx = (contextlib.nullcontext() if stream is None
            else torch.cuda.stream(stream))
@@ -349,22 +382,44 @@ def _issue_bucket(key, idxs, seeds, thread_node, lock_node,
                          backend=backend, device=dev, streams=streams,
                          plan=plan)
         e1 = _mark(dev)
-    _STATS["dispatches"] += 1
-    return _Issued(key, idxs, seeds, stream, out, (d0, d1, e1))
+    return _Shard(dev, stream, out, (d0, d1, e1))
 
 
-def _force_bucket(bucket: _Issued, configs, n_events: int, out: list):
-    """Wait for one issued bucket, copy its outputs back and fill its
-    workloads' ``BatchResult``s into ``out``."""
-    if bucket.stream is not None:
-        bucket.marks[-1].synchronize()
+def _joined(parts, j: int, B: int) -> np.ndarray:
+    """Output ``j`` of the shards ``parts`` joined in row order, the
+    padding rows cut off."""
+    a = parts[0][j] if len(parts) == 1 else np.concatenate(
+        [p[j] for p in parts])
+    return a[:B]
+
+
+def _force_bucket(issued: _Issued, configs, n_events: int, out: list):
+    """Wait for one dispatch, copy its shards' outputs back and, once its
+    bucket's last dispatch is in, fill the bucket's workloads'
+    ``BatchResult``s into ``out``."""
+    for sh in issued.shards:
+        if sh.stream is not None:
+            sh.marks[-1].synchronize()
     t_start = time.perf_counter()
-    ctx = (contextlib.nullcontext() if bucket.stream is None
-           else torch.cuda.stream(bucket.stream))
-    with ctx:
-        outs = tuple(o.cpu().numpy() for o in bucket.out)
+    bucket = issued.bucket
+    for sh in issued.shards:
+        ctx = (contextlib.nullcontext() if sh.stream is None
+               else torch.cuda.stream(sh.stream))
+        with ctx:
+            bucket.parts.append(tuple(o.cpu().numpy() for o in sh.out))
+    bucket.pending -= 1
+    if bucket.pending == 0:
+        _aggregate(bucket, configs, n_events, out)
+    _SECONDS["aggregate"] += time.perf_counter() - t_start
+
+
+def _aggregate(bucket: _Bucket, configs, n_events: int, out: list):
+    """A bucket's joined outputs -> its workloads' ``BatchResult``s."""
     _, T, _, _, _, R = bucket.key
     C, S = bucket.seeds.shape
+    outs = tuple(_joined(bucket.parts, j, C * S)
+                 for j in range(len(bucket.parts[0])))
+    bucket.parts = []
     done, lat, _lat_n, t_end, nreacq, npass = outs[:6]
     done = done.reshape(C, S, T)
     lat = lat.reshape(C, S, LAT_SAMPLES)
@@ -388,7 +443,6 @@ def _force_bucket(bucket: _Issued, configs, n_events: int, out: list):
         out[i] = BatchResult(configs[i], n_events, bucket.seeds[row], ops,
                              sim_ns, mops, lat[row], done[row], nreacq[row],
                              npass[row], **kw)
-    _SECONDS["aggregate"] += time.perf_counter() - t_start
 
 
 def sweep(configs: Sequence[SimConfig | Workload], n_seeds: int = 1,
@@ -396,14 +450,23 @@ def sweep(configs: Sequence[SimConfig | Workload], n_seeds: int = 1,
           backend: str = "auto", device="cuda", devices=None,
           chunk: int | None = None) -> list[BatchResult]:
     """Run every workload with seeds ``w.seed + [0, n_seeds)``; one engine
-    call per ``shape_key`` bucket.
+    call per ``shape_key`` bucket (per superchunk shard when sharding).
 
     configs: ``Workload`` specs and/or legacy ``SimConfig`` (adapter).
     backend: "kernel" | "plain" | "auto" — per-replica engine (see
       ``core/sim.py``); both return bitwise-identical replicas.
     device: where the buckets run; the default ``"cuda"`` raises without a
       CUDA device.
-    devices, chunk: sharded dispatch — not ported yet, must stay None.
+    devices: devices, all of one type, to shard each bucket's flattened
+      (workload x seed) axis over; it takes the place of ``device``. A
+      device may be listed more than once (its shards then share it).
+      None with ``chunk`` set means every visible device of ``device``'s
+      type; None with ``chunk=None`` keeps one dispatch per bucket.
+    chunk: rows per device per dispatch *unit*. A bucket's units are
+      coalesced into greedy power-of-two superchunks, one dispatch each
+      (``popcount(units)`` per bucket); ``chunk=None`` with ``devices``
+      set gives one even chunk per device (one superchunk). Every layout
+      returns the same bits.
 
     Returns BatchResults parallel to ``configs`` (duplicates are simulated
     twice — dedupe upstream if the grid overlaps; ``experiments.Experiment``
@@ -421,13 +484,17 @@ def sweep(configs: Sequence[SimConfig | Workload], n_seeds: int = 1,
     """
     if n_seeds < 1:
         raise ValueError(f"n_seeds must be >= 1, got {n_seeds}")
-    if devices is not None or chunk is not None:
-        raise NotImplementedError(SHARDED_MSG)
-    dev = resolve_device(device)
-    backend = resolve_backend(backend, dev)
+    if chunk is not None and int(chunk) < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    devs = (_sharding.resolve_devices(devices, device)
+            if devices is not None or chunk is not None
+            else [resolve_device(device)])
+    backend = resolve_backend(backend, devs[0])
+    D = len(devs)
+    places = list(dict.fromkeys(devs))         # each device once
     configs = list(configs)
     t_wall = t_start = time.perf_counter()
-    origin = _mark(dev)
+    origins = {d: _mark(d) for d in places}
     lowered = [lower(as_workload(c), n_events, cm) for c in configs]
     buckets: dict[tuple, list[int]] = {}
     for i, lw in enumerate(lowered):
@@ -435,27 +502,47 @@ def sweep(configs: Sequence[SimConfig | Workload], n_seeds: int = 1,
     _SECONDS["lower"] += time.perf_counter() - t_start
 
     out: list[BatchResult | None] = [None] * len(configs)
-    pool = _stream_pool(dev)
-    budget = _in_flight_budget(dev)
-    issued: deque[tuple[_Issued, int]] = deque()   # (bucket, its bytes)
-    spans = []
+    pools = {d: _stream_pool(d) for d in places}
+    budgets = {d: _in_flight_budget(d) for d in places}
+    live = dict.fromkeys(places, 0)            # bytes issued, not forced
+    turn = dict.fromkeys(places, 0)            # next stream of each pool
+    issued: deque[_Issued] = deque()
+    spans = []                                 # (device, marks) per shard
 
     def force_oldest():
-        bucket, _ = issued.popleft()
-        spans.append(bucket.marks)
-        _force_bucket(bucket, configs, n_events, out)
+        oldest = issued.popleft()
+        for d, n in oldest.need.items():
+            live[d] -= n
+        spans.extend((sh.dev, sh.marks) for sh in oldest.shards)
+        _force_bucket(oldest, configs, n_events, out)
 
-    for n_bucket, (key, idxs) in enumerate(buckets.items()):
-        # bound the device memory of the issued buckets: force the oldest
-        # until this one fits (on the CPU: always, before lowering it)
-        need = _bucket_bytes(key, len(idxs) * n_seeds)
-        while issued and sum(n for _, n in issued) + need > budget:
+    def bytes_by_device(key, cut):
+        need = {}
+        for d, (_, n) in zip(devs, cut):
+            need[d] = need.get(d, 0) + _bucket_bytes(key, n)
+        return need
+
+    def make_room(need):
+        # bound the device memory of the issued shards: force the oldest
+        # dispatch until this one fits on each of its devices (on the
+        # CPU: always)
+        while issued and any(live[d] + n > budgets[d]
+                             for d, n in need.items()):
             force_oldest()
+
+    for key, idxs in buckets.items():
+        C, S = len(idxs), n_seeds
+        B = C * S
+        # unsharded (one device, no chunk): one superchunk of B rows
+        parts = _sharding.superchunks(B, D, chunk)
+        cuts = [_sharding.shards(off, nrows, D) for off, nrows in parts]
+        # room for the first dispatch before packing (on the CPU: every
+        # earlier bucket forced first)
+        make_room(bytes_by_device(key, cuts[0]))
         t_start = time.perf_counter()
         alg, T, N, K, _, R = key
         kpn = K // N
         thread_node, lock_node, _ = topology(alg, N, T // N, K, cm)
-        C, S = len(idxs), n_seeds
         # scenarios with fewer phases pad up to the bucket max with
         # unreachable phases, so mixed phase programs share one engine call
         # (open-loop arrival rows pad identically; R is part of the key)
@@ -488,20 +575,36 @@ def sweep(configs: Sequence[SimConfig | Workload], n_seeds: int = 1,
             sd[row] = int(o.seed) + np.arange(S, dtype=np.int32)
 
         def flat(a):
-            return a.reshape((C * S,) + a.shape[2:])
+            # (C, S, ...) -> (B, ...), padded to a multiple of D
+            return _sharding.pad_rows(a.reshape((B,) + a.shape[2:]),
+                                      _sharding.padded_rows(B, D) - B)
 
         wl = WorkloadOperands(flat(loc), flat(zc), flat(ed), flat(th),
                               flat(ac), flat(bi), flat(sd), flat(cr),
                               flat(nm), flat(ag), flat(ae), flat(aq),
                               flat(at), flat(af), flat(rk), flat(rf))
         _SECONDS["lower"] += time.perf_counter() - t_start
-        issued.append((_issue_bucket(key, idxs, sd, thread_node,
-                                     lock_node, wl, backend, dev,
-                                     pool[n_bucket % len(pool)]), need))
+        bucket = _Bucket(key, idxs, sd, len(parts))
+        for cut in cuts:
+            need = bytes_by_device(key, cut)
+            make_room(need)
+            shards = []
+            for d, (off, n) in zip(devs, cut):
+                pool = pools[d]
+                shards.append(_issue_shard(
+                    key, thread_node, lock_node,
+                    WorkloadOperands(*(a[off:off + n] for a in wl)),
+                    backend, d, pool[turn[d] % len(pool)]))
+                turn[d] += 1
+            for d, n in need.items():
+                live[d] += n
+            _STATS["dispatches"] += 1
+            issued.append(_Issued(bucket, shards, need))
     while issued:
         force_oldest()
-    # the device stages' time: union of the buckets' intervals
-    marks = [tuple(_seconds(origin, m) for m in ms) for ms in spans]
+    # the device stages' time: union of the shards' intervals, each timed
+    # against its own device's origin
+    marks = [tuple(_seconds(origins[d], m) for m in ms) for d, ms in spans]
     draws = [(d0, d1) for d0, d1, _ in marks]
     engine = [(d1, e1) for _, d1, e1 in marks]
     _SECONDS["draws"] += _union(draws)

@@ -16,9 +16,9 @@ A scenario may declare an :class:`~repro_torch.experiments.slo.Slo` — a
 latency/throughput contract :func:`~repro_torch.experiments.slo.check_slo`
 evaluates against its rows.
 
-The coordination-plane scenario ``coord-stress`` stays registered, so the
-name list equals the reference's, but raises ``NotImplementedError``: the
-threaded coordination plane (``coord/``) is ROADMAP Queue A item A9.
+The coordination-plane scenario ``coord-stress`` drives the threaded lock
+table and the lease/membership plane (``repro_torch.coord``) on host
+threads, whatever ``options.device`` says: it runs no engine.
 
 >>> from repro_torch.experiments.registry import (scenario_names,
 ...                                               scenario_workloads)
@@ -36,10 +36,6 @@ from repro_torch.experiments.slo import Slo
 from repro_torch.traffic.metrics import detect_knee
 from repro_torch.workloads import (Arrivals, Phase, Workload, mixed,
                                    racks_of, resolve_node_mult)
-
-COORD_MSG = (
-    "the coordination-plane stress (coord/service.py, coord/stress.py) is "
-    "not ported yet — ROADMAP Queue A, item A9")
 
 _SCENARIOS: dict[str, "Scenario"] = {}
 
@@ -647,4 +643,33 @@ def _paper_fig5(n_seeds, n_events, options):
 @scenario("coord-stress",
           "threaded coordination plane under churn + lease-expiry storms")
 def _coord_stress(n_seeds, n_events, options):
-    raise NotImplementedError(COORD_MSG)
+    """The churn program (node 2 down for the middle phase under a Zipf
+    storm) on the threaded coordination plane, one row per seed. Host
+    threads only: ``options`` (device, backend, sharding) is not read, as
+    no engine runs. ``ops``, ``per_node_ops``, ``lease_grants``,
+    ``lease_steals`` and ``phase_members`` are fixed by the seed;
+    ``local_ops`` and ``remote_ops`` count Peterson spins and so depend on
+    the threads' interleaving."""
+    from repro_torch.coord.stress import ManualClock, run_coord_stress
+    churn = (Phase(frac=0.3), Phase(frac=0.4, down_nodes=(2,),
+                                    zipf_s=2.0),
+             Phase(frac=0.3))
+    rows = []
+    ops_per_thread = max(20, min(n_events // 100, 300))
+    for seed in range(n_seeds):
+        w = Workload("alock", n_nodes=3, threads_per_node=4, n_locks=12,
+                     locality=0.9, seed=seed, phases=churn)
+        rep = run_coord_stress(w, ops_per_thread=ops_per_thread,
+                               clock=ManualClock())
+        rows.append({
+            "name": f"coord.churn.seed{seed}", "us_per_call": 0.0,
+            "derived": (f"ops={rep.ops},local={rep.local_ops},"
+                        f"remote={rep.remote_ops},"
+                        f"steals={rep.lease_steals}"),
+            "ops": rep.ops, "local_ops": rep.local_ops,
+            "remote_ops": rep.remote_ops,
+            "lease_grants": rep.lease_grants,
+            "lease_steals": rep.lease_steals,
+            "phase_members": rep.phase_members,
+        })
+    return rows

@@ -3,8 +3,10 @@
 ``run_events`` takes a ``WorkloadOperands`` whose leaves carry a leading
 replica axis B and returns ``(done, lat, lat_n, t_end, nreacq, npass)``,
 plus ``(arr, wq, soj, rstat)`` for an open-loop bucket (``R > 0``).
-``backend="kernel"`` launches the hand-written CUDA kernel
-(``kernel.py`` / ``csrc/event_loop.cu``) and needs CUDA tensors;
+``run_events_pairs`` returns the same outputs in the reference's hi/lo
+int32 contract (``i32pair``). ``backend="kernel"`` launches the
+hand-written CUDA kernel (``kernel.py`` / ``csrc/event_loop.cu``) and
+needs CUDA tensors;
 ``backend="plain"`` runs ``ref.run_events_plain`` on whatever device was
 asked for; ``"auto"`` is the kernel on a CUDA device and the plain version
 on an explicitly requested CPU.
@@ -37,6 +39,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.device import resolve_backend, resolve_device
+from repro_torch.kernels.event_loop import i32pair
 from repro_torch.kernels.event_loop import kernel as _kernel
 from repro_torch.kernels.event_loop.ref import LAT_SAMPLES, run_events_plain
 from repro_torch.traffic.stream import (ArrivalPlan, arrival_plan,
@@ -192,3 +195,29 @@ def run_events(alg, T, N, K, n_events, wl, thread_node, lock_node, *,
         else run_events_plain
     return run(alg, T, N, K, n_events, wl, thread_node, lock_node, streams,
                lat_samples=lat_samples, plan=plan, arr=arr)
+
+
+def run_events_pairs(alg, T, N, K, n_events, wl, thread_node, lock_node, *,
+                     lat_samples: int = LAT_SAMPLES, backend: str = "auto",
+                     device="cuda", streams=None, plan=None):
+    """``run_events`` with every int64 output as a hi/lo int32 pair.
+
+    Returns ``(done (B,T) i32, (lat_hi, lat_lo) (B,lat_samples) i32 each,
+    lat_n (B,) i32, (t_end_hi, t_end_lo) (B,) i32 each, nreacq (B,) i32,
+    npass (B,) i32)``; an open-loop ``wl`` appends ``(arr, wq, soj)`` as
+    ``(hi, lo)`` pairs of ``(B,R)`` i32 each and ``rstat (B,R) i32`` —
+    the reference's ``run_events_pairs`` tuple. Combine pairs with
+    ``i32pair.pack`` / ``pack_np``. The engine is ``run_events``'s (the
+    kernel's clocks are native int64); only its clock outputs are split.
+    """
+    out = run_events(alg, T, N, K, n_events, wl, thread_node, lock_node,
+                     lat_samples=lat_samples, backend=backend, device=device,
+                     streams=streams, plan=plan)
+    done, lat, lat_n, t_end, nreacq, npass = out[:6]
+    base = (done, i32pair.unpack(lat), lat_n, i32pair.unpack(t_end), nreacq,
+            npass)
+    if len(out) == 6:
+        return base
+    arr, wq, soj, rstat = out[6:]
+    return base + (i32pair.unpack(arr), i32pair.unpack(wq),
+                   i32pair.unpack(soj), rstat)

@@ -13,12 +13,14 @@ from repro_torch.traffic.metrics import (COMPLETED, DROPPED, IN_SERVICE,
                                          serving_summary)
 from repro_torch.traffic.stream import (ArrivalPlan, arrival_gaps,
                                         arrival_plan, arrival_times_i64,
-                                        fma_f32, log1p_f32, per_request,
+                                        arrival_times_pairs, fma_f32,
+                                        log1p_f32, per_request,
                                         request_phase_onehot, token_admit)
 
 __all__ = [
     "ArrivalPlan", "COMPLETED", "DROPPED", "IN_SERVICE", "PENDING",
-    "arrival_gaps", "arrival_plan", "arrival_times_i64", "detect_knee",
+    "arrival_gaps", "arrival_plan", "arrival_times_i64",
+    "arrival_times_pairs", "detect_knee",
     "fma_f32", "log1p_f32", "per_request", "request_phase_onehot",
     "serving_summary", "token_admit",
 ]

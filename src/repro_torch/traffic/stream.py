@@ -50,10 +50,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.kernels.event_loop import i32pair
 
 __all__ = [
     "ArrivalPlan", "arrival_gaps", "arrival_plan", "arrival_times_i64",
-    "fma_f32", "log1p_f32", "per_request", "request_phase_onehot",
+    "arrival_times_pairs", "fma_f32", "log1p_f32", "per_request", "request_phase_onehot",
     "token_admit",
 ]
 
@@ -203,6 +204,12 @@ def arrival_gaps(seed, arr_fix, gap_ns_r, n_events: int) -> torch.Tensor:
 def arrival_times_i64(gaps: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum of the gaps over the request axis, int64."""
     return torch.cumsum(gaps.to(I64), dim=-1)
+
+
+def arrival_times_pairs(gaps: torch.Tensor):
+    """``arrival_times_i64`` as a hi/lo int32 pair (``kernels.event_loop.
+    i32pair``): the reference's x64-free output contract."""
+    return i32pair.unpack(arrival_times_i64(gaps))
 
 
 def token_admit(gaps, rate_r, burst_r) -> torch.Tensor:

@@ -60,6 +60,9 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.kernels.flash_attention.ops\n"
         "import repro_torch.kernels.ssd_scan.ops\n"
         "import repro_torch.kernels.alock_tick.ops, repro_torch.core.tla\n"
+        "import repro_torch.parallel.sharding, repro_torch.coord.stress\n"
+        "import repro_torch.core.lock_table\n"
+        "import repro_torch.kernels.event_loop.i32pair\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -75,7 +78,8 @@ DOCTEST_MODULES = [
     "repro_torch.core.batch", "repro_torch.core.cost_model",
     "repro_torch.experiments", "repro_torch.experiments.registry",
     "repro_torch.experiments.slo", "repro_torch.kernels.alock_tick.ops",
-    "repro_torch.kernels.event_loop.ops",
+    "repro_torch.kernels.event_loop.i32pair",
+    "repro_torch.kernels.event_loop.ops", "repro_torch.parallel.sharding",
     "repro_torch.traffic.metrics", "repro_torch.traffic.stream",
     "repro_torch.workloads", "repro_torch.workloads.lower",
     "repro_torch.workloads.spec",
@@ -172,11 +176,24 @@ def test_smem_budget_raises_actionably():
         smem_bytes("alock", 16, 4, 16, 3, 10_000)
 
 
-@pytest.mark.parametrize("kw", [{"devices": 2}, {"chunk": 8}])
+@pytest.mark.parametrize("kw", [{"devices": ["cpu", "cpu"]},
+                                {"chunk": 1}])
 def test_sharded_dispatch_raises_not_implemented(kw):
-    from repro_torch.core.batch import sweep
-    with pytest.raises(NotImplementedError, match="devices=, chunk="):
-        sweep([_workload()], n_events=50, device="cpu", **kw)
+    """Sharded dispatch is ported: two shards on one device, and chunks of
+    one row, return the unsharded sweep's arrays (this test once asserted
+    that ``devices=`` / ``chunk=`` raise ``NotImplementedError``)."""
+    import numpy as np
+    from repro_torch.core import batch
+    base = batch.sweep([_workload()], n_seeds=3, n_events=50, device="cpu")
+    batch.reset_exec_stats()
+    got = batch.sweep([_workload()], n_seeds=3, n_events=50, device="cpu",
+                      **kw)
+    # ["cpu", "cpu"]: one superchunk of 4 rows (one padding row) in two
+    # shards; chunk=1: 3 units -> superchunks of 2 and 1 rows
+    assert batch.exec_stats()["dispatches"] == (1 if "devices" in kw else 2)
+    for f in ("seeds", "ops", "sim_ns", "lat_ns", "per_thread_ops",
+              "reacquires", "passes"):
+        assert np.array_equal(getattr(base[0], f), getattr(got[0], f)), f
 
 
 def test_open_loop_raises_not_implemented():

@@ -5,8 +5,9 @@ summaries, SLOs and swept ``Workload`` specs (compared through
 ``torch_ref.to_port``), and ``run_scenario`` returns the same rows — every
 key, wall-clock free by construction, compared with ``==`` (NaN equal to
 NaN) — for the two open-loop scenarios and one closed-loop scenario at a
-small event count on the CPU. ``coord-stress`` stays registered and raises
-``NotImplementedError`` naming its ROADMAP item.
+small event count on the CPU. ``coord-stress`` runs the threaded
+coordination plane on host threads (``tests/test_torch_coord.py`` holds
+its rows against the reference's).
 """
 import doctest
 import math
@@ -95,9 +96,16 @@ def test_check_slo_equals_reference():
 
 
 def test_coord_stress_raises_naming_a9():
-    with pytest.raises(NotImplementedError, match="A9"):
-        run_scenario("coord-stress", n_seeds=1, n_events=100,
-                     options=ExecOptions(device="cpu"))
+    """``coord-stress`` is ported (A9): it runs on host threads and returns
+    one churn row per seed, with the default options too, which name a
+    CUDA device this host lacks (this test once asserted that it raises
+    ``NotImplementedError`` naming A9)."""
+    for options in (ExecOptions(device="cpu"), ExecOptions()):
+        rows = run_scenario("coord-stress", n_seeds=1, n_events=100,
+                            options=options)
+        assert [r["name"] for r in rows] == ["coord.churn.seed0"]
+        assert rows[0]["ops"] > 0
+        assert rows[0]["phase_members"] == [[0, 1, 2], [0, 1], [0, 1, 2]]
 
 
 def test_unknown_scenario_raises():

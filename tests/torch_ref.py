@@ -22,7 +22,10 @@ if not hasattr(_je, "disable_x64"):
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+import repro.coord.service as ref_coord_service  # noqa: E402
+import repro.coord.stress as ref_coord_stress  # noqa: E402
 import repro.core.batch as ref_batch  # noqa: E402
+import repro.core.lock_table as ref_lock_table  # noqa: E402
 import repro.core.machine as ref_machine  # noqa: E402
 import repro.core.sim as ref_sim  # noqa: E402
 import repro.core.tla as ref_tla  # noqa: E402
@@ -31,6 +34,7 @@ import repro.experiments.registry as ref_registry  # noqa: E402
 import repro.kernels.alock_tick.kernel as ref_tick_kernel  # noqa: E402
 import repro.kernels.alock_tick.ops as ref_tick_ops  # noqa: E402
 import repro.kernels.alock_tick.ref as ref_tick_ref  # noqa: E402
+import repro.kernels.event_loop.i32pair as ref_i32pair  # noqa: E402
 import repro.kernels.event_loop.ops as ref_ops  # noqa: E402
 import repro.kernels.event_loop.ref as ref_ref  # noqa: E402
 import repro.kernels.flash_attention.kernel as ref_flash_kernel  # noqa: E402
@@ -40,6 +44,7 @@ import repro.kernels.flash_attention.ref as ref_flash_ref  # noqa: E402
 import repro.kernels.ssd_scan.kernel as ref_ssd_kernel  # noqa: E402
 import repro.kernels.ssd_scan.ops as ref_ssd_ops  # noqa: E402
 import repro.kernels.ssd_scan.ref as ref_ssd_ref  # noqa: E402
+import repro.traffic.stream as ref_traffic_stream  # noqa: E402
 import repro.workloads as ref_workloads  # noqa: E402
 
 __all__ = ["jax", "jnp", "np", "ref_batch", "ref_sim", "ref_experiments",
@@ -47,6 +52,8 @@ __all__ = ["jax", "jnp", "np", "ref_batch", "ref_sim", "ref_experiments",
            "ref_flash_kernel", "ref_flash_kernel_bwd", "ref_flash_ops", "ref_flash_ref",
            "ref_ssd_kernel", "ref_ssd_ops", "ref_ssd_ref", "ref_machine",
            "ref_tla", "ref_tick_kernel", "ref_tick_ops", "ref_tick_ref",
+           "ref_coord_service", "ref_coord_stress", "ref_lock_table",
+           "ref_i32pair", "ref_traffic_stream",
            "ref_lowered_batched", "assert_bitwise", "to_port", "OUT_NAMES"]
 
 OUT_NAMES = ("done", "lat", "lat_n", "t_end", "nreacq", "npass")
