@@ -145,6 +145,15 @@ per source, all started together), then prints one JSON object per phase:
               (tables, steps) schedule allocated: peak device memory below
               its size), seconds by stage, table-steps per second, the two
               statistics equal to the golden's
+  analysis    ``repro_torch.analysis.__main__.main`` in process: ``--strict
+              --device cuda`` (every rule, with the card legs: S001's C and
+              Python shared-memory bytes at every registry bucket and K2-K6
+              launch shape and the card's opt-in limit, R004's key of the
+              live ``nvcc`` in every loaded library's name, X001 through
+              K1), ``--selftest`` and ``--imports``; each exit code, the
+              findings, the legs, the per-shape bytes and the ``nvcc``
+              version. The kernel_check phases' C vs Python tables go
+              through the same S001 function
   kernels     the per-kernel record (K1 closed and open, K2, K3-K6): launches
               on each main path, largest deviation from the plain version,
               times, the roofline bound and the library call's time (K1 and
@@ -538,6 +547,18 @@ def deviation(torch, got, want, tol):
     return err, ok
 
 
+def smem_check(ep, dev):
+    """S001 of ``repro_torch.analysis`` at one launch shape: the C
+    library's and the Python wrapper's shared-memory bytes, and whether
+    the rule is clean there (C == Python, within the limit, the limit the
+    card's opt-in)."""
+    from repro_torch.analysis import check_smem_consistency, smem_sizes
+    sizes = smem_sizes(ep, dev)
+    return {"entrypoint": ep.name, "c": list(sizes["c"]),
+            "python": list(sizes["python"]),
+            "agrees": not check_smem_consistency(ep, dev)}
+
+
 def ptxas_report(log):
     """function -> registers and spill bytes, from ``nvcc -Xptxas -v``."""
     rows, cur = {}, None
@@ -638,6 +659,8 @@ def float_kernel_phases(torch, dev):
     float_timings and exemplar_path; returns the K3-K6 records of the
     ``kernels`` line.
     Raises on any disagreement."""
+    from repro_torch.analysis.entrypoints import (Entrypoint,
+                                                  kernel_entrypoints)
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import kernel_bwd as fkb
@@ -651,13 +674,8 @@ def float_kernel_phases(torch, dev):
     f32, bf16 = torch.float32, torch.bfloat16
 
     # -- kernel_check_attention: K3, K4, K5 vs their plain versions --------
-    lib_f, lib_b = fk.load(), fkb.load()
-    smem_rows = []
-    for hd in (16, 64, 80, 128, 256):
-        c = (lib_f.flash_fwd_smem_bytes(hd), lib_b.flash_dq_smem_bytes(hd),
-             lib_b.flash_dkv_smem_bytes(hd))
-        py = (fk.smem_bytes(hd), *fkb.smem_bytes(hd).values())
-        smem_rows.append({"hd": hd, "smem_bytes": c, "agrees": c == py})
+    smem_rows = [smem_check(ep, dev) for ep in kernel_entrypoints()
+                 if ep.kind in ("k3", "k4", "k5")]
     cases, errs = [], {"K3": 0.0, "K4": 0.0, "K5": 0.0}
 
     def fwd_case(name, shp, dtype, tol, causal, window, seed):
@@ -797,13 +815,16 @@ def float_kernel_phases(torch, dev):
         err6 = max(err6, err)
         y, h = ssd_forward(*xs, chunk=L)
         err_f, ok_f = deviation(torch, (y, h), ssd_sequential(*xs), SSD_TOL)
-        c_smem = sk.load().ssd_smem_bytes(L, P, N, plan["hb"])
+        smem = smem_check(Entrypoint(
+            f"k6:{name}", "k6", {"L": L, "P": P, "N": N, "hb": plan["hb"]}),
+            dev)
         ssd_cases.append({"case": name, "shape": shp, "plan": plan,
                           "head_tiles_equal": list(tiles),
                           "max_abs_err": err, "ok": ok,
                           "forward_vs_sequential_max_abs_err": err_f,
-                          "forward_ok": ok_f, "smem_bytes": c_smem,
-                          "smem_agrees": c_smem == plan["smem_bytes"]})
+                          "forward_ok": ok_f, "smem": smem,
+                          "smem_agrees": smem["agrees"] and smem["python"]
+                          == [plan["smem_bytes"]]})
     # control, as for K4 and K5: one element of b changed by 1e-3
     ops = chunked(*ssd_inputs(torch, dev, 1, 32, 2, 8, 4, 299), 8)
     b2 = ops[2].clone()
@@ -970,6 +991,7 @@ def tick_phases(torch, dev, np):
     from repro_torch.core import machine as mc
     from repro_torch.core import prng
     from repro_torch.core.sim import run_schedule
+    from repro_torch.analysis.entrypoints import kernel_entrypoints
     from repro_torch.kernels.alock_tick import kernel as tk
     from repro_torch.kernels.alock_tick import ops as tops
     from repro_torch.kernels.alock_tick.ref import alock_tick_plain
@@ -992,18 +1014,8 @@ def tick_phases(torch, dev, np):
     # -- kernel_check_tick: K2 vs its plain version, on the card ------------
     # every case with the schedule given (mode a); then the schedule drawn
     # in the kernel (mode b) against ops.schedule + the plain version
-    lib = tk.load()
-    smem_rows = []
-    for T, tile, mode, cw in ((3, 4, "given", 1), (16, 128, "given", 1),
-                              (16, 128, "drawn", 1), (100, 128, "drawn", 1),
-                              (300, 64, "given", 1), (200, 128, "given", 4),
-                              (16, 128, "drawn", 4)):
-        p = tk.tick_plan(T, tile, None, mode, chain_warps=cw)
-        c_bytes = lib.alock_tick_smem_bytes(T, p.chain_warps, p.stage_steps,
-                                            p.stages)
-        smem_rows.append({**p.as_dict(), "tile": tile,
-                          "chain_warps_asked": cw, "c_smem_bytes": c_bytes,
-                          "agrees": c_bytes == p.smem_bytes})
+    smem_rows = [dict(smem_check(ep, dev), **ep.plan.as_dict())
+                 for ep in kernel_entrypoints() if ep.kind == "k2"]
     cases = []
 
     def record(name, got, want, **kw):
@@ -1431,6 +1443,40 @@ def pairs_phase(torch, cases):
         raise SystemExit(f"pairs: the hi/lo outputs disagree: {rows}")
 
 
+def analysis_phase(torch, dev):
+    """``python -m repro_torch.analysis`` in process, once every library
+    is built: the lint with its card legs (``--strict --device cuda``:
+    S001's C == Python at every sweep bucket and K2-K6 launch shape,
+    R004's live ``nvcc`` key, X001 through K1), the fixture corpus
+    (``--selftest``) and the imports gate (``--imports``). Raises on any
+    non-zero exit code or finding."""
+    from repro_torch.analysis import legs
+    from repro_torch.analysis.__main__ import main as lint
+    from repro_torch.analysis.entrypoints import collect_entrypoints
+    from repro_torch.analysis.rules import kernel_builds
+    from repro_torch.kernels import _build
+    out = str(_build.build_dir() / "analysis_findings.json")
+    t0 = time.perf_counter()
+    codes = {"strict": lint(["--strict", "--device", "cuda", "--json", out]),
+             "selftest": lint(["--selftest"]),
+             "imports": lint(["--imports"])}
+    seconds = time.perf_counter() - t0
+    with open(out) as f:
+        findings = json.load(f)
+    smem = [smem_check(ep, dev) for ep in collect_entrypoints()]
+    ok = (not any(codes.values()) and not findings
+          and all(r["agrees"] for r in smem))
+    emit({"phase": "analysis", "seconds": seconds, "exit_codes": codes,
+          "findings": findings, "legs": legs(device=dev),
+          "smem_all_agree": all(r["agrees"] for r in smem), "smem": smem,
+          "nvcc_version": _build.nvcc_version().strip().splitlines()[-2:],
+          "libraries": {stem: _build.loaded_path(stem).name
+                        for stem, *_ in kernel_builds()}})
+    if not ok:
+        raise SystemExit(f"analysis: exit codes {codes}, findings "
+                         f"{findings}")
+
+
 COORD_FIXED = ("name", "ops", "lease_grants", "lease_steals",
                "phase_members")
 
@@ -1463,6 +1509,7 @@ def main():
         return 1
     sys.path.insert(0, os.path.join(HERE, "src"))
     import numpy as np
+    from repro_torch.analysis.entrypoints import k1_entrypoint
     from repro_torch.core import batch
     from repro_torch.core.sim import topology
     from repro_torch.experiments import (Experiment, run_scenario,
@@ -1502,7 +1549,6 @@ def main():
         [(el_kernel.SOURCE, "event_loop", el_kernel.NVCC_FLAGS)]
         + [(_build.CSRC / f"{stem}.cu", stem, flags.get(stem, _build.FLAGS))
            for stem in LIBRARIES])
-    lib = el_kernel.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": el_kernel.build_seconds(),
           "library": os.path.relpath(str(libs["event_loop"]), HERE),
@@ -1668,15 +1714,11 @@ def main():
 
     def tables(alg, T, N, K, P, R, warps):
         """The C library's and the planner's shared-memory tables: one
-        replica's region and one block of ``warps`` regions."""
-        a = el_kernel.ALGS.index(alg)
-        plan = smem_plan.plan_smem(alg, warps, T, N, K, P, R,
-                                             warps=warps)
-        c = (lib.event_loop_smem_bytes(a, T, N, K, P, R),
-             lib.event_loop_block_bytes(a, T, N, K, P, R, warps))
-        return {"smem_bytes": c[0], "block_bytes": c[1],
-                "smem_table_agrees": c == (el_kernel.smem_bytes(
-                    alg, T, N, K, P, R), plan.total_bytes)}
+        replica's region and one block of ``warps`` regions (S001)."""
+        row = smem_check(k1_entrypoint(alg, warps, T, N, K, P, R,
+                                       warps=warps), dev)
+        return {"smem_bytes": row["c"][0], "block_bytes": row["c"][1],
+                "smem_table_agrees": row["agrees"]}
 
     checks = []
     max_err = 0.0
@@ -2188,6 +2230,9 @@ def main():
 
     # -- the lock-property path (K2) ----------------------------------------
     tick_record = tick_phases(torch, dev, np)
+
+    # -- analysis: the port's lint on the card ------------------------------
+    analysis_phase(torch, dev)
 
     # -- the per-kernel record ----------------------------------------------
     emit({"kernels": [{

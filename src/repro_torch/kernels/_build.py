@@ -3,8 +3,9 @@
 Each ``.cu`` source becomes its own shared library with a plain C
 interface, compiled by ``nvcc`` for ``sm_90a`` into ``build/`` at the
 repository root at first use and loaded with ``ctypes``. A library's name
-carries a hash of its source and flags, so an edit rebuilds. A failed
-build raises. Nothing here runs at import time: importing this module
+carries ``build_key``: a hash of its source, the headers beside it, its
+flags and ``nvcc --version``, so an edit or another toolkit rebuilds. A
+failed build raises. Nothing here runs at import time: importing this module
 needs neither ``nvcc`` nor a CUDA device.
 
 ``FLAGS`` leave out ``--use_fast_math``: ``expf``/``logf`` stay the
@@ -13,6 +14,7 @@ accurate versions, which the float kernels' tolerances depend on.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -26,6 +28,10 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
+#: dynamic shared memory one block may use on Hopper (opt-in above 48 KB;
+#: ``cudaDevAttrMaxSharedMemoryPerBlockOptin``): every kernel's planner
+#: plans against it
+SMEM_LIMIT = 227 * 1024
 
 #: stem -> wall seconds of the last ``nvcc`` run of this process
 BUILD_SECONDS: dict[str, float] = {}
@@ -41,26 +47,46 @@ def build_dir() -> Path:
     return Path(__file__).resolve().parents[3] / "build"
 
 
-def _nvcc(source: Path) -> str:
+def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError(
         "nvcc was not found (looked at PATH and /usr/local/cuda/bin/nvcc); "
-        f"the kernel is built from {source} at first use and cannot run "
-        "without it")
+        "the kernels are built from their CUDA sources at first use and "
+        "cannot run without it")
+
+
+@functools.cache
+def nvcc_version() -> str:
+    """What ``nvcc --version`` prints; run once per process."""
+    return subprocess.run([_nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def build_key(source: Path, flags, nvcc_version: str) -> str:
+    """The hash a library's name carries: ``source``'s text, every
+    ``.cuh`` beside it, ``flags`` and the compiler's version text."""
+    parts = [source.read_bytes()]
+    parts += [h.read_bytes() for h in sorted(source.parent.glob("*.cuh"))]
+    parts += [" ".join(flags).encode(), nvcc_version.encode()]
+    return hashlib.sha256(b"\0".join(parts)).hexdigest()[:16]
+
+
+def library_path(source: Path, stem: str, flags=FLAGS) -> Path:
+    """Where the library of ``source`` built with ``flags`` by this
+    process's ``nvcc`` lies (``build_dir()``), built or not."""
+    tag = build_key(source, flags, nvcc_version())
+    return build_dir() / f"lib{stem}_{tag}.so"
 
 
 def build(source: Path, stem: str, flags=FLAGS) -> Path:
     """Compile ``source`` if no library for its current text, the headers
-    beside it and ``flags`` exists; return the library's path. (Add
-    ``-Xptxas -v`` to the flags to see registers, shared memory and
-    spills.)"""
-    text = source.read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
-    tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
-    out_dir = build_dir()
-    lib = out_dir / f"lib{stem}_{tag}.so"
+    beside it, ``flags`` and this ``nvcc`` exists; return the library's
+    path. (Add ``-Xptxas -v`` to the flags to see registers, shared memory
+    and spills.)"""
+    lib = library_path(source, stem, flags)
+    out_dir = lib.parent
     log = lib.with_name(lib.name + ".log")
     if lib.exists():
         if log.exists():
@@ -68,7 +94,7 @@ def build(source: Path, stem: str, flags=FLAGS) -> Path:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"{lib.name}.{os.getpid()}.{id(source)}.tmp"
-    cmd = [_nvcc(source), *flags, "-o", str(tmp), str(source)]
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     BUILD_SECONDS[stem] = time.perf_counter() - t0
@@ -100,6 +126,12 @@ def load(source: Path, stem: str, setup, flags=FLAGS) -> ctypes.CDLL:
         setup(lib)
         _LIBS[stem] = lib
     return _LIBS[stem]
+
+
+def loaded_path(stem: str) -> Path:
+    """The file of the library ``load`` loaded for ``stem`` (KeyError when
+    none is loaded)."""
+    return Path(_LIBS[stem]._name)
 
 
 def load_library(stem: str, signatures: dict, flags=FLAGS) -> ctypes.CDLL:

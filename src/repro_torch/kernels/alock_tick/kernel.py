@@ -35,8 +35,7 @@ from repro_torch.kernels.alock_tick.ref import alock_tick_plain
 LAUNCHES = 0
 _LAST_PLAN: dict | None = None
 
-#: shared memory one block may use on Hopper
-SMEM_LIMIT = 227 * 1024
+SMEM_LIMIT = _build.SMEM_LIMIT
 WARP = 32
 #: threads a block at most (the kernel's launch bound)
 MAX_THREADS = 256

@@ -1,11 +1,12 @@
-"""Shared-memory planner of the CUDA event-loop kernel (pure Python).
+"""Shared-memory planner of the CUDA event-loop kernel (host code only).
 
 The kernel (``csrc/event_loop.cu``) keeps every per-replica buffer in
 shared memory for the whole run, one warp per replica and ``W`` replicas
 (warps) per block, each in its own region. One region's bytes are a
 closed-form function of ``(alg, T, N, K, P, R)`` (``smem_table``, the
 carve-up of the ``.cu`` row by row); a block needs ``W`` regions, each
-rounded up to 16 bytes, within the 227 KB one block may use on Hopper.
+rounded up to 16 bytes, within the 227 KB one block may use on Hopper
+(``_build.SMEM_LIMIT``).
 
 ``plan_smem`` chooses ``W``: the requested count, clamped to ``[1, B]``
 and to ``MAX_WARPS``, then evened out (``ceil(B / ceil(B / W))``: the same
@@ -23,10 +24,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Mapping
 
+from repro_torch.kernels._build import SMEM_LIMIT
+
 ALGS = ("alock", "mcs", "spinlock", "hlock", "alock-rw")
 
-#: shared memory one block may use on Hopper (dynamic, opt-in above 48 KB)
-SMEM_LIMIT = 227 * 1024
 #: replicas (warps) per block at most: the kernel's launch bound is 256
 #: threads
 MAX_WARPS = 8

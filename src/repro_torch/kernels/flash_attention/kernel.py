@@ -89,7 +89,7 @@ def smem_bytes(hd: int) -> int:
     tile, a ring of three stages (two where three do not fit in 227 KB) of
     a k and a v tile, and the mbarriers."""
     def one(g):
-        return _smem(g, 3 if _smem(g, 3) <= 227 * 1024 else 2)
+        return _smem(g, 3 if _smem(g, 3) <= _build.SMEM_LIMIT else 2)
     return max(one(_geometry(hd, dt)) for dt in (torch.float32,
                                                    torch.bfloat16))
 

@@ -81,7 +81,8 @@ def _smem(g: dict, stages: int, dkv: bool) -> int:
 
 def _stages(hd: int, dtype) -> int:
     """Stages of the streamed ring: three where they fit in 227 KB."""
-    return 3 if _smem(_geometry(hd, dtype), 3, True) <= 227 * 1024 else 2
+    fits = _smem(_geometry(hd, dtype), 3, True) <= _build.SMEM_LIMIT
+    return 3 if fits else 2
 
 
 def smem_bytes(hd: int) -> dict:

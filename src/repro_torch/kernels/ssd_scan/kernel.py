@@ -31,8 +31,7 @@ from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
 LAUNCHES = 0
 _LAST_PLAN = None
 
-#: shared memory one block may use on Hopper
-SMEM_LIMIT = 227 * 1024
+SMEM_LIMIT = _build.SMEM_LIMIT
 #: the longest chunk: c b^T stays in registers, 16 rows in each of 8 warps
 MAX_L = 128
 #: SMs of an H100, the plan's default when no device is asked

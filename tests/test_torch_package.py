@@ -63,6 +63,8 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.parallel.sharding, repro_torch.coord.stress\n"
         "import repro_torch.core.lock_table\n"
         "import repro_torch.kernels.event_loop.i32pair\n"
+        "import repro_torch.analysis, repro_torch.analysis.__main__\n"
+        "import repro_torch.analysis.fixtures\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -75,6 +77,8 @@ def test_import_leaves_jax_and_reference_unloaded():
 
 
 DOCTEST_MODULES = [
+    "repro_torch.analysis", "repro_torch.analysis.entrypoints",
+    "repro_torch.analysis.imports", "repro_torch.analysis.rules",
     "repro_torch.core.batch", "repro_torch.core.cost_model",
     "repro_torch.experiments", "repro_torch.experiments.registry",
     "repro_torch.experiments.slo", "repro_torch.kernels.alock_tick.ops",

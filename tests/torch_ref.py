@@ -22,6 +22,9 @@ if not hasattr(_je, "disable_x64"):
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+import repro.analysis.entrypoints as ref_analysis_entrypoints  # noqa: E402,E501
+import repro.analysis.imports as ref_analysis_imports  # noqa: E402
+import repro.analysis.rules as ref_analysis_rules  # noqa: E402
 import repro.coord.service as ref_coord_service  # noqa: E402
 import repro.coord.stress as ref_coord_stress  # noqa: E402
 import repro.core.batch as ref_batch  # noqa: E402
@@ -47,7 +50,8 @@ import repro.kernels.ssd_scan.ref as ref_ssd_ref  # noqa: E402
 import repro.traffic.stream as ref_traffic_stream  # noqa: E402
 import repro.workloads as ref_workloads  # noqa: E402
 
-__all__ = ["jax", "jnp", "np", "ref_batch", "ref_sim", "ref_experiments",
+__all__ = ["jax", "jnp", "np", "ref_analysis_entrypoints",
+           "ref_analysis_imports", "ref_analysis_rules", "ref_batch", "ref_sim", "ref_experiments",
            "ref_registry", "ref_ops", "ref_ref", "ref_workloads",
            "ref_flash_kernel", "ref_flash_kernel_bwd", "ref_flash_ops", "ref_flash_ref",
            "ref_ssd_kernel", "ref_ssd_ops", "ref_ssd_ref", "ref_machine",
