@@ -44,7 +44,16 @@ per row by the seed, so every layout gives the same bits.
 
 ``exec_stats()`` counts engine dispatches (one per bucket unsharded, one
 per superchunk sharded) and kernel launches (one per shard), times the
-stages and shows the event-loop kernel's last shared-memory plan.
+stages, counts the events drawn against the events the loop ran, and shows
+the event-loop kernel's last shared-memory plan. Each host stage is one
+``stage(name, counter)``: its host-clock time goes to ``exec_stats()
+["seconds"][counter]`` and, while ``torch.profiler`` records, it is a host
+span ``name`` on the profiler's timeline, so the device's idle gaps can be
+named by the stage the host was in. The spans nest as ``experiment.run >
+sweep > sweep.lower | sweep.pack | sweep.issue (> sweep.upload,
+sweep.draws, sweep.plan, sweep.launch) | sweep.wait | sweep.copy_back |
+sweep.aggregate``; ``result.latency`` and ``result.serving`` are the
+``BatchResult`` reductions.
 """
 from __future__ import annotations
 
@@ -55,6 +64,7 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core.cost_model import CostModel, N_COST_ROWS
 from repro_torch.core.sim import (LAT_SAMPLES, SimConfig, SimResult,
@@ -84,32 +94,65 @@ IN_FLIGHT_SHARE = 0.5
 # (kernels/event_loop/kernel.py), one per shard, read here so a run can show
 # that its buckets went through the kernel. The reference's "compiles" has
 # no counterpart: the kernel library is built once per source hash.
-# "seconds" by stage: "lower" (host: lowering and packing the buckets) and
-# "aggregate" (host: copy back and BatchResults, after the bucket's device
-# work is done) are host-clock sums; "draws" (operand upload, draw stream,
-# arrival plan) and "engine" (the event loop) are, on a CUDA device, the
-# union of the shards' intervals between CUDA events recorded on their
-# streams (time during which at least one shard was in that stage; the
-# two overlap one another and the host stages), on the CPU host-clock sums.
-# Each device's events are timed against that device's own origin event;
-# the origins are recorded one after another as the sweep starts, so the
-# devices' intervals share one timeline to within those few microseconds;
-# "engine_only" is the part of "engine" during which no shard was in its
-# draws (what the engine adds beside the draws); "wall" is the host clock
-# around each sweep() call. "smem_plan" is the event-loop kernel's last
+# "seconds" by stage. Host-clock sums of the host's own stages, disjoint:
+# "lower" (lowering and bucketing the workloads, packing each bucket),
+# "issue" (enqueueing each shard: operand upload, draw stream, arrival
+# plan, engine launch; on the CPU the engine runs inside it), "wait" (the
+# host blocked until a dispatch's device work is done) and "aggregate"
+# (copy back and BatchResults, after that); "plan" is the part of "issue"
+# spent making arrival plans; "results" is the host time of the
+# BatchResult reductions (latency pools and percentiles, serving
+# summaries), which run after sweep() returns. "draws" (operand upload,
+# draw stream, arrival plan) and "engine" (the event loop) are, on a CUDA
+# device, the union of the shards' intervals between CUDA events recorded
+# on their streams (time during which at least one shard was in that
+# stage; the two overlap one another and the host stages), on the CPU
+# host-clock sums. Each device's events are timed against that device's
+# own origin event; the origins are recorded one after another as the
+# sweep starts, so the devices' intervals share one timeline to within
+# those few microseconds; "engine_only" is the part of "engine" during
+# which no shard was in its draws (what the engine adds beside the draws);
+# "wall" is the host clock around each sweep() call. "events": "drawn" is
+# replicas x n_events of every shard (the draw stream is made for every
+# event), "run" the events the loop ran (an open-loop replica stops at the
+# first event at which it is idle for good: K1's ``diag``; a closed one
+# runs every event). "smem_plan" is the event-loop kernel's last
 # shared-memory plan (None before any launch).
 _STATS = {"dispatches": 0}
-_SECONDS = {"lower": 0.0, "draws": 0.0, "engine": 0.0, "engine_only": 0.0,
-            "aggregate": 0.0, "wall": 0.0}
+_SECONDS = {"lower": 0.0, "issue": 0.0, "plan": 0.0, "wait": 0.0,
+            "draws": 0.0, "engine": 0.0, "engine_only": 0.0,
+            "aggregate": 0.0, "results": 0.0, "wall": 0.0}
+_EVENTS = {"drawn": 0, "run": 0}
 _STREAMS: dict = {}
 
 
+@contextlib.contextmanager
+def stage(name: str, counter: str | None = None):
+    """A stage of the host: adds its host-clock time to ``exec_stats()
+    ["seconds"][counter]`` (unless ``counter`` is None) and, while
+    ``torch.profiler`` records, opens the span ``name``
+    (``record_function``, a user annotation; the profiler's copy of it on
+    the device's timeline is flagged as one too). Also a decorator. With
+    no profiler running it costs a flag test and two clock reads."""
+    with (record_function(name) if torch.autograd._profiler_enabled()
+          else contextlib.nullcontext()):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if counter is not None:
+                _SECONDS[counter] += time.perf_counter() - t0
+
+
 def exec_stats() -> dict:
-    """Snapshot of {dispatches, launches, seconds, smem_plan} since the
-    last reset."""
+    """Snapshot of {dispatches, launches, seconds, events, smem_plan} since
+    the last reset. ``seconds``: lower, issue, plan, wait, draws, engine,
+    engine_only, aggregate, results, wall (see the comment above
+    ``_SECONDS``); ``events``: {drawn, run}."""
     plan = _smem_plan.last_plan()
     return {"dispatches": _STATS["dispatches"],
             "launches": _kernel.launches(), "seconds": dict(_SECONDS),
+            "events": dict(_EVENTS),
             "smem_plan": None if plan is None else plan.as_dict()}
 
 
@@ -117,6 +160,8 @@ def reset_exec_stats() -> None:
     _STATS["dispatches"] = 0
     for k in _SECONDS:
         _SECONDS[k] = 0.0
+    for k in _EVENTS:
+        _EVENTS[k] = 0
     _kernel.reset_launches()
     _smem_plan.clear_plan()
 
@@ -176,8 +221,12 @@ class BatchResult(NamedTuple):
 
     # -- open-loop serving aggregates --------------------------------------
 
+    @stage("result.serving", "results")
     def serving(self, i: int) -> dict:
         """One seed's ``traffic.metrics.serving_summary`` dict."""
+        return self._serving(i)
+
+    def _serving(self, i: int) -> dict:
         if not self.open_loop:
             raise ValueError("serving() needs an open-loop run "
                              "(Workload.arrivals)")
@@ -185,9 +234,10 @@ class BatchResult(NamedTuple):
                                self.sojourn_ns[i], self.rstat[i],
                                int(self.sim_ns[i]))
 
+    @stage("result.serving", "results")
     def serving_mean(self) -> dict:
         """Seed-averaged serving summary (nan-safe over empty seeds)."""
-        rows = [self.serving(i) for i in range(self.n_seeds)]
+        rows = [self._serving(i) for i in range(self.n_seeds)]
         out = {}
         for k in rows[0]:
             vals = np.asarray([r[k] for r in rows], np.float64)
@@ -216,20 +266,24 @@ class BatchResult(NamedTuple):
         return flat[flat >= 0]
 
     @property
+    @stage("result.latency", "results")
     def mean_lat_us(self) -> float:
         pool = self._lat_pool()
         return float(pool.mean()) / 1e3 if len(pool) else float("nan")
 
     @property
+    @stage("result.latency", "results")
     def p50_lat_ns(self) -> float:
         pool = self._lat_pool()
         return float(np.percentile(pool, 50)) if len(pool) else float("nan")
 
     @property
+    @stage("result.latency", "results")
     def p99_lat_ns(self) -> float:
         pool = self._lat_pool()
         return float(np.percentile(pool, 99)) if len(pool) else float("nan")
 
+    @stage("result.latency", "results")
     def lat_pct(self, q: float) -> tuple[float, float]:
         """(mean, ci95) of the q-th latency percentile across seeds."""
         per_seed = []
@@ -337,6 +391,7 @@ class _Shard(NamedTuple):
     stream: object           # torch.cuda.Stream, or None on the CPU
     out: tuple               # the engine's device outputs
     marks: tuple             # (draws start, engine start, engine end)
+    diag: object             # open loop: (B, 2) i32 events run; else None
 
 
 class _Bucket:
@@ -359,30 +414,42 @@ class _Issued(NamedTuple):
     need: dict               # device -> bytes its shards hold until forced
 
 
+@stage("sweep.issue", "issue")
 def _issue_shard(key, thread_node, lock_node, wl: WorkloadOperands,
                  backend: str, dev, stream) -> _Shard:
     """Enqueue one shard (its rows of a bucket) on ``dev``: upload its
-    operands, draw its stream (and plan), launch its engine call. ``wl``
-    leaves (numpy) carry the shard's rows."""
+    operands, draw its stream (and plan), launch its engine call (with a
+    ``diag`` for an open-loop shard). ``wl`` leaves (numpy) carry the
+    shard's rows."""
     alg, T, N, K, n_events, R = key
     ctx = (contextlib.nullcontext() if stream is None
            else torch.cuda.stream(stream))
     with ctx:
         d0 = _mark(dev)
-        wd = (to_device(wl, dev) if dev.type != "cuda" else WorkloadOperands(
-            *(_upload(a, dev, OPERAND_DTYPES[name])
-              for name, a in zip(WorkloadOperands._fields, wl))))
-        tn = _upload(thread_node, dev, np.int32)
-        ln = _upload(lock_node, dev, np.int32)
-        streams = precompute_draws(wd.seed, wd.edges, wd.zcdf, n_events, N,
-                                   K // N, rw=alg == "alock-rw", device=dev)
-        plan = precompute_plan(wd, n_events, device=dev) if R else None
+        with stage("sweep.upload"):
+            wd = (to_device(wl, dev) if dev.type != "cuda" else
+                  WorkloadOperands(*(
+                      _upload(a, dev, OPERAND_DTYPES[name])
+                      for name, a in zip(WorkloadOperands._fields, wl))))
+            tn = _upload(thread_node, dev, np.int32)
+            ln = _upload(lock_node, dev, np.int32)
+        with stage("sweep.draws"):
+            streams = precompute_draws(wd.seed, wd.edges, wd.zcdf, n_events,
+                                       N, K // N, rw=alg == "alock-rw",
+                                       device=dev)
+        plan = None
+        if R:
+            with stage("sweep.plan", "plan"):
+                plan = precompute_plan(wd, n_events, device=dev)
         d1 = _mark(dev)
-        out = run_events(alg, T, N, K, n_events, wd, tn, ln,
-                         backend=backend, device=dev, streams=streams,
-                         plan=plan)
+        with stage("sweep.launch"):
+            diag = (torch.zeros((wd.seed.shape[0], 2), dtype=torch.int32,
+                                device=dev) if R else None)
+            out = run_events(alg, T, N, K, n_events, wd, tn, ln,
+                             backend=backend, device=dev, streams=streams,
+                             plan=plan, diag=diag)
         e1 = _mark(dev)
-    return _Shard(dev, stream, out, (d0, d1, e1))
+    return _Shard(dev, stream, out, (d0, d1, e1), diag)
 
 
 def _joined(parts, j: int, B: int) -> np.ndarray:
@@ -394,23 +461,28 @@ def _joined(parts, j: int, B: int) -> np.ndarray:
 
 
 def _force_bucket(issued: _Issued, configs, n_events: int, out: list):
-    """Wait for one dispatch, copy its shards' outputs back and, once its
-    bucket's last dispatch is in, fill the bucket's workloads'
-    ``BatchResult``s into ``out``."""
-    for sh in issued.shards:
-        if sh.stream is not None:
-            sh.marks[-1].synchronize()
-    t_start = time.perf_counter()
+    """Wait for one dispatch, copy its shards' outputs back, count their
+    events and, once its bucket's last dispatch is in, fill the bucket's
+    workloads' ``BatchResult``s into ``out``."""
+    with stage("sweep.wait", "wait"):
+        for sh in issued.shards:
+            if sh.stream is not None:
+                sh.marks[-1].synchronize()
     bucket = issued.bucket
-    for sh in issued.shards:
-        ctx = (contextlib.nullcontext() if sh.stream is None
-               else torch.cuda.stream(sh.stream))
-        with ctx:
-            bucket.parts.append(tuple(o.cpu().numpy() for o in sh.out))
-    bucket.pending -= 1
+    with stage("sweep.copy_back", "aggregate"):
+        for sh in issued.shards:
+            ctx = (contextlib.nullcontext() if sh.stream is None
+                   else torch.cuda.stream(sh.stream))
+            with ctx:
+                bucket.parts.append(tuple(o.cpu().numpy() for o in sh.out))
+                drawn = sh.out[0].shape[0] * n_events
+                _EVENTS["drawn"] += drawn
+                _EVENTS["run"] += (drawn if sh.diag is None else int(
+                    sh.diag.cpu().numpy()[:, 0].sum(dtype=np.int64)))
+        bucket.pending -= 1
     if bucket.pending == 0:
-        _aggregate(bucket, configs, n_events, out)
-    _SECONDS["aggregate"] += time.perf_counter() - t_start
+        with stage("sweep.aggregate", "aggregate"):
+            _aggregate(bucket, configs, n_events, out)
 
 
 def _aggregate(bucket: _Bucket, configs, n_events: int, out: list):
@@ -445,6 +517,60 @@ def _aggregate(bucket: _Bucket, configs, n_events: int, out: list):
                              npass[row], **kw)
 
 
+def _pack(key, operands: list, S: int, D: int, cm: CostModel):
+    """A bucket's lowered operands (one per workload) as the rows of its
+    engine call: every workload x ``S`` seeds, flattened to ``(C * S,
+    ...)`` and padded to a multiple of ``D`` rows. Returns the cluster's
+    ``thread_node`` and ``lock_node``, the ``(C, S)`` seeds and the packed
+    ``WorkloadOperands`` (numpy)."""
+    alg, T, N, K, _, R = key
+    C, kpn = len(operands), K // N
+    B = C * S
+    thread_node, lock_node, _ = topology(alg, N, T // N, K, cm)
+    # scenarios with fewer phases pad up to the bucket max with
+    # unreachable phases, so mixed phase programs share one engine call
+    # (open-loop arrival rows pad identically; R is part of the key)
+    Pmax = max(o.n_phases for o in operands)
+    loc = np.empty((C, S, Pmax, T), np.float32)
+    zc = np.empty((C, S, Pmax, kpn), np.float32)
+    ed = np.empty((C, S, Pmax), np.int32)
+    th = np.empty((C, S, Pmax), np.int32)
+    ac = np.empty((C, S, Pmax, T), np.int32)
+    bi = np.empty((C, S, Pmax, 2), np.int32)
+    cr = np.empty((C, S, Pmax, N_COST_ROWS), np.int32)
+    nm = np.empty((C, S, Pmax, N), np.float32)
+    sd = np.empty((C, S), np.int32)
+    ag = np.empty((C, S, Pmax), np.float32)
+    ae = np.empty((C, S, Pmax), np.int32)
+    aq = np.empty((C, S, Pmax), np.int32)
+    at = np.empty((C, S, Pmax, 2), np.float32)
+    af = np.empty((C, S, R), np.int32)
+    rk = np.empty((C, S, N), np.int32)
+    rf = np.empty((C, S, Pmax, T), np.float32)
+    for row, op in enumerate(operands):
+        o = pad_phases(op, Pmax)
+        loc[row], zc[row], ed[row] = o.locality, o.zcdf, o.edges
+        th[row], ac[row], bi[row] = o.think_ns, o.active, o.b_init
+        cr[row], nm[row] = o.cost_rows, o.node_mult
+        ag[row], ae[row], aq[row] = (o.arr_gap_ns, o.arr_edges,
+                                     o.arr_qcap)
+        at[row], af[row] = o.arr_token, o.arr_fix
+        rk[row], rf[row] = o.rack, o.read_frac
+        sd[row] = int(o.seed) + np.arange(S, dtype=np.int32)
+
+    def flat(a):
+        # (C, S, ...) -> (B, ...), padded to a multiple of D
+        return _sharding.pad_rows(a.reshape((B,) + a.shape[2:]),
+                                  _sharding.padded_rows(B, D) - B)
+
+    wl = WorkloadOperands(flat(loc), flat(zc), flat(ed), flat(th),
+                          flat(ac), flat(bi), flat(sd), flat(cr), flat(nm),
+                          flat(ag), flat(ae), flat(aq), flat(at), flat(af),
+                          flat(rk), flat(rf))
+    return thread_node, lock_node, sd, wl
+
+
+@stage("sweep", "wall")
 def sweep(configs: Sequence[SimConfig | Workload], n_seeds: int = 1,
           n_events: int = 400_000, cm: CostModel = CostModel(), *,
           backend: str = "auto", device="cuda", devices=None,
@@ -493,13 +619,12 @@ def sweep(configs: Sequence[SimConfig | Workload], n_seeds: int = 1,
     D = len(devs)
     places = list(dict.fromkeys(devs))         # each device once
     configs = list(configs)
-    t_wall = t_start = time.perf_counter()
-    origins = {d: _mark(d) for d in places}
-    lowered = [lower(as_workload(c), n_events, cm) for c in configs]
-    buckets: dict[tuple, list[int]] = {}
-    for i, lw in enumerate(lowered):
-        buckets.setdefault(lw.shape_key, []).append(i)
-    _SECONDS["lower"] += time.perf_counter() - t_start
+    with stage("sweep.lower", "lower"):
+        origins = {d: _mark(d) for d in places}
+        lowered = [lower(as_workload(c), n_events, cm) for c in configs]
+        buckets: dict[tuple, list[int]] = {}
+        for i, lw in enumerate(lowered):
+            buckets.setdefault(lw.shape_key, []).append(i)
 
     out: list[BatchResult | None] = [None] * len(configs)
     pools = {d: _stream_pool(d) for d in places}
@@ -531,59 +656,16 @@ def sweep(configs: Sequence[SimConfig | Workload], n_seeds: int = 1,
             force_oldest()
 
     for key, idxs in buckets.items():
-        C, S = len(idxs), n_seeds
-        B = C * S
+        B = len(idxs) * n_seeds
         # unsharded (one device, no chunk): one superchunk of B rows
         parts = _sharding.superchunks(B, D, chunk)
         cuts = [_sharding.shards(off, nrows, D) for off, nrows in parts]
         # room for the first dispatch before packing (on the CPU: every
         # earlier bucket forced first)
         make_room(bytes_by_device(key, cuts[0]))
-        t_start = time.perf_counter()
-        alg, T, N, K, _, R = key
-        kpn = K // N
-        thread_node, lock_node, _ = topology(alg, N, T // N, K, cm)
-        # scenarios with fewer phases pad up to the bucket max with
-        # unreachable phases, so mixed phase programs share one engine call
-        # (open-loop arrival rows pad identically; R is part of the key)
-        Pmax = max(lowered[i].operands.n_phases for i in idxs)
-        loc = np.empty((C, S, Pmax, T), np.float32)
-        zc = np.empty((C, S, Pmax, kpn), np.float32)
-        ed = np.empty((C, S, Pmax), np.int32)
-        th = np.empty((C, S, Pmax), np.int32)
-        ac = np.empty((C, S, Pmax, T), np.int32)
-        bi = np.empty((C, S, Pmax, 2), np.int32)
-        cr = np.empty((C, S, Pmax, N_COST_ROWS), np.int32)
-        nm = np.empty((C, S, Pmax, N), np.float32)
-        sd = np.empty((C, S), np.int32)
-        ag = np.empty((C, S, Pmax), np.float32)
-        ae = np.empty((C, S, Pmax), np.int32)
-        aq = np.empty((C, S, Pmax), np.int32)
-        at = np.empty((C, S, Pmax, 2), np.float32)
-        af = np.empty((C, S, R), np.int32)
-        rk = np.empty((C, S, N), np.int32)
-        rf = np.empty((C, S, Pmax, T), np.float32)
-        for row, i in enumerate(idxs):
-            o = pad_phases(lowered[i].operands, Pmax)
-            loc[row], zc[row], ed[row] = o.locality, o.zcdf, o.edges
-            th[row], ac[row], bi[row] = o.think_ns, o.active, o.b_init
-            cr[row], nm[row] = o.cost_rows, o.node_mult
-            ag[row], ae[row], aq[row] = (o.arr_gap_ns, o.arr_edges,
-                                         o.arr_qcap)
-            at[row], af[row] = o.arr_token, o.arr_fix
-            rk[row], rf[row] = o.rack, o.read_frac
-            sd[row] = int(o.seed) + np.arange(S, dtype=np.int32)
-
-        def flat(a):
-            # (C, S, ...) -> (B, ...), padded to a multiple of D
-            return _sharding.pad_rows(a.reshape((B,) + a.shape[2:]),
-                                      _sharding.padded_rows(B, D) - B)
-
-        wl = WorkloadOperands(flat(loc), flat(zc), flat(ed), flat(th),
-                              flat(ac), flat(bi), flat(sd), flat(cr),
-                              flat(nm), flat(ag), flat(ae), flat(aq),
-                              flat(at), flat(af), flat(rk), flat(rf))
-        _SECONDS["lower"] += time.perf_counter() - t_start
+        with stage("sweep.pack", "lower"):
+            thread_node, lock_node, sd, wl = _pack(
+                key, [lowered[i].operands for i in idxs], n_seeds, D, cm)
         bucket = _Bucket(key, idxs, sd, len(parts))
         for cut in cuts:
             need = bytes_by_device(key, cut)
@@ -602,13 +684,13 @@ def sweep(configs: Sequence[SimConfig | Workload], n_seeds: int = 1,
             issued.append(_Issued(bucket, shards, need))
     while issued:
         force_oldest()
-    # the device stages' time: union of the shards' intervals, each timed
-    # against its own device's origin
-    marks = [tuple(_seconds(origins[d], m) for m in ms) for d, ms in spans]
+    # the device stages' time: union of the shards' intervals, each
+    # timed against its own device's origin
+    marks = [tuple(_seconds(origins[d], m) for m in ms)
+             for d, ms in spans]
     draws = [(d0, d1) for d0, d1, _ in marks]
     engine = [(d1, e1) for _, d1, e1 in marks]
     _SECONDS["draws"] += _union(draws)
     _SECONDS["engine"] += _union(engine)
     _SECONDS["engine_only"] += _union_outside(engine, draws)
-    _SECONDS["wall"] += time.perf_counter() - t_wall
     return out

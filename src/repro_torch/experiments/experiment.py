@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import itertools
 
-from repro_torch.core.batch import BatchResult, sweep
+from repro_torch.core.batch import BatchResult, stage, sweep
 from repro_torch.core.cost_model import CostModel
 from repro_torch.experiments.options import ExecOptions
 from repro_torch.workloads import Workload, as_workload
@@ -71,8 +71,10 @@ class Experiment:
             self.add(w, label=f"{prefix}{seg}" if prefix else seg)
         return self
 
+    @stage("experiment.run")
     def run(self) -> "ExperimentResult":
-        """One deduped batched sweep over every entry."""
+        """One deduped batched sweep over every entry (the host span
+        ``experiment.run`` under ``torch.profiler``)."""
         uniq = list(dict.fromkeys(w for _, w in self._entries))
         res = dict(zip(uniq, sweep(
             uniq, n_seeds=self.n_seeds, n_events=self.n_events, cm=self.cm,

@@ -135,7 +135,7 @@ def precompute_plan(wl, n_events: int, device="cuda") -> ArrivalPlan:
 
 def run_events(alg, T, N, K, n_events, wl, thread_node, lock_node, *,
                lat_samples: int = LAT_SAMPLES, backend: str = "auto",
-               device="cuda", streams=None, plan=None):
+               device="cuda", streams=None, plan=None, diag=None):
     """Batched event loop, closed or open.
 
     ``wl`` is a ``WorkloadOperands`` with a leading replica axis B on
@@ -155,6 +155,16 @@ def run_events(alg, T, N, K, n_events, wl, thread_node, lock_node, *,
     drawing it from ``wl.seed``, and ``plan`` a precomputed
     ``ArrivalPlan`` — the tests use them to tell a fault in the engine
     from a fault in a generator.
+
+    ``diag``, an optional ``(B, 2)`` int32 tensor on ``device``, receives
+    per replica the events the loop ran and, in its second column, 1 where
+    an open-loop replica's arrival times are non-decreasing (the kernel's
+    pointer path). A replica runs every event unless it is open loop and
+    falls idle for good: at the first event ``i`` at which every thread is
+    idle, no admitted request is pending and the arrival stream is
+    drained, it stops with ``i + 1``. The kernel and the plain engine fill
+    it by that one rule; the draw stream is made for every event either
+    way, so ``diag[:, 0] / n_events`` is the share of it the loop used.
     """
     dev = resolve_device(device)
     backend = resolve_backend(backend, dev)
@@ -177,6 +187,8 @@ def run_events(alg, T, N, K, n_events, wl, thread_node, lock_node, *,
                           device=dev),
                z, torch.zeros(B, dtype=torch.int64, device=dev),
                z.clone(), z.clone())
+        if diag is not None:
+            diag.zero_()
         if not R:
             return out
         m1 = torch.full((B, R), -1, dtype=torch.int64, device=dev)
@@ -194,7 +206,7 @@ def run_events(alg, T, N, K, n_events, wl, thread_node, lock_node, *,
     run = _kernel.run_events_kernel if backend == "kernel" \
         else run_events_plain
     return run(alg, T, N, K, n_events, wl, thread_node, lock_node, streams,
-               lat_samples=lat_samples, plan=plan, arr=arr)
+               lat_samples=lat_samples, plan=plan, arr=arr, diag=diag)
 
 
 def run_events_pairs(alg, T, N, K, n_events, wl, thread_node, lock_node, *,

@@ -363,7 +363,7 @@ def sem_step(alg, sem: Sem, tid, b_init, thread_node, lock_node,
 
 def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
                      streams, *, lat_samples: int = LAT_SAMPLES, plan=None,
-                     arr=None):
+                     arr=None, diag=None):
     """Batched event loop in plain tensor ops.
 
     ``wl`` is a ``WorkloadOperands`` of tensors with a leading replica
@@ -375,6 +375,15 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
     ``traffic.stream.ArrivalPlan`` of its replicas, and ``arr (B,R) i64``,
     their arrival times (``arrival_times_i64(plan.gaps)``), and appends
     ``(arr, wq, soj) (B,R) i64, rstat (B,R) i32``.
+
+    ``diag``, an optional ``(B, 2)`` int32 tensor, is filled by the
+    kernel's rule: column 0 the events the loop ran — ``i + 1`` for the
+    first event ``i`` at which an open-loop replica is idle for good
+    (every thread idle, nothing admitted pending, the arrival stream
+    drained; every later event is a no-op), else ``n_events`` — and
+    column 1 1 where an open-loop replica's arrival times are
+    non-decreasing. This engine runs every event either way; the count
+    costs a few ops an event and is made only when ``diag`` is given.
     """
     R = wl.arr_fix.shape[-1]
     if R > 0 and (plan is None or arr is None):
@@ -424,6 +433,7 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
     def at_phase(a, ph):
         return a[:, 0] if ph is None else a[rows, ph]
 
+    ev_run = torch.full((B,), n_events, dtype=i32, device=dev)
     for i in range(n_events):
         # -- phase resolve + the boundary rejoin bump -----------------------
         if P > 1:
@@ -449,6 +459,12 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
             next_arr = torch.where(avail, arr, _NEVER).min(1).values
             wake = torch.where(pend, torch.maximum(ready, next_arr[:, None]),
                                ready)
+            if diag is not None:
+                # idle for good: no thread can step again, at this event or
+                # any later one
+                stop = pend.all(1) & (next_arr == _NEVER)
+                ev_run = torch.where(stop & (ev_run == n_events), i + 1,
+                                     ev_run)
         else:
             wake = ready
         elig = torch.where(actm, wake, _NEVER) if P > 1 else wake
@@ -562,5 +578,9 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
             _put(rstat, rq, COMPLETED, comp)
             _put(curreq, tid, -1, comp)
 
+    if diag is not None:
+        diag[:, 0] = ev_run
+        diag[:, 1] = ((arr[:, 1:] >= arr[:, :-1]).all(1).to(i32) if R
+                      else 0)
     out = (done, lat, latn, ready.max(1).values, reacq, npass)
     return out + (arr, wq, soj, rstat) if R else out

@@ -16,3 +16,8 @@ else:
         suppress_health_check=[HealthCheck.too_slow,
                                HealthCheck.data_too_large])
     settings.load_profile("repro")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device (skips without one)")

@@ -92,8 +92,8 @@ def test_every_bucket_is_issued_before_a_result_is_forced(monkeypatch):
     assert log == ["run"] * 4 + ["force"] * 4
     assert st["launches"] == 0 and st["smem_plan"] is None    # plain engine
     sec = st["seconds"]
-    assert set(sec) == {"lower", "draws", "engine", "engine_only",
-                        "aggregate", "wall"}
+    assert set(sec) == {"lower", "issue", "plan", "wait", "draws", "engine",
+                        "engine_only", "aggregate", "results", "wall"}
     assert sec["engine"] > 0 and sec["wall"] > 0
     # on the CPU the stages run one after another: nothing overlaps
     assert sec["engine_only"] == pytest.approx(sec["engine"])
