@@ -6,7 +6,7 @@ repository's ``src/`` beside this file; needs no network and no JAX.
 Without a CUDA device it exits non-zero and prints no result — it never
 runs on the CPU.
 
-It builds the five kernel libraries from ``src/repro_torch/csrc`` (one ``nvcc``
+It builds the six kernel libraries from ``src/repro_torch/csrc`` (one ``nvcc``
 per source, all started together), then prints one JSON object per phase:
 
   device      card name and power limit (``nvidia-smi``), torch/CUDA versions,
@@ -16,6 +16,13 @@ per source, all started together), then prints one JSON object per phase:
               and so does the lock-property path's shaped schedule stream
               (``alock_tick.ops.schedule``) at three shapes x seeds {0, 1,
               7, 2**31-1}, whole and drawn in slabs of rows
+  draw_stream  the draw-stream kernel (``csrc/draw_stream.cu``) equals its
+              plain version on the card (``torch.equal``; tolerance zero)
+              for rw x P {1, 3} x N {1, 2, 20} x kpn {1, 50, 200} at seeds
+              {0, 1, 7, 2**31-1} and 2,047 events, one replica, and the
+              widest Fig. 5 bucket (B = 96, 150,000 events) by digest, one
+              launch each; its time there against ``draw_bound`` and the
+              plain route's
   traffic_plan  the open loop's arrival plan (gaps, token-admit mask, its
               prefix count, queue bounds, arrival times) made on the card
               equals the one made on the CPU: seeds {0, 1, 7, 2**31-1} x the
@@ -57,7 +64,8 @@ per source, all started together), then prints one JSON object per phase:
               150,000 events each) through ``Experiment.run()`` with the
               default device and backend (every bucket issued before any
               is forced); launch counters are set to 0 just before and read
-              just after; then the same grid one bucket at a time
+              just after (one K1 and one draw-kernel launch a bucket);
+              then the same grid one bucket at a time
               (``batch.IN_FLIGHT_SHARE = 0``), every replica's outputs
               compared by digest
   main_path_open  ``run_scenario("open-loop-ramp")`` and ``("burst-storm")``
@@ -71,7 +79,8 @@ per source, all started together), then prints one JSON object per phase:
               a bucket on the one card); counters set to 0 just before each
               and read just after: every replica's outputs equal
               main_path's (by digest), dispatches equal the sum over the 33
-              buckets of popcount(units), one launch a shard; wall, seconds
+              buckets of popcount(units), one K1 and one draw-kernel
+              launch a shard; wall, seconds
               by stage and peak device memory of each
   pairs       ``run_events_pairs`` (the hi/lo int32 output contract) by the
               kernel at the widest Fig. 5 bucket (events cut to 3,000) and
@@ -226,6 +235,21 @@ THREEFRY_OPS = 72
 #: integer instructions of one remainder by the launch's span through its
 #: magic: multiply-high, subtract, shift, add, shift, multiply-subtract
 MOD_OPS = 6
+#: the draw stream's hashes an event: fold_in 1, split 3 (4 with the read
+#: coin), a uniform from each of subkeys 0 and 2 (and 3), randint's split 2
+#: and its two draws 2 (simbench/peaks.py's THREEFRY_CALLS)
+DRAW_HASHES = {False: 10, True: 12}
+#: a uniform from its bits (shift, or, subtract); randint's combine (two
+#: remainders, multiply, add, remainder, add)
+UNIFORM_OPS = 3
+RANDINT_OPS = 6
+#: the draw kernel's cases against its plain version: seeds, events (not a
+#: multiple of its 1,024-event block), and the grid of rw x P x N x kpn
+DRAW_SEEDS = (0, 1, 7, 2**31 - 1)
+DRAW_EVENTS = 2047
+DRAW_GRID = dict(rw=(False, True), P=(1, 3), N=(1, 2, 20), kpn=(1, 50, 200))
+#: launches the draw kernel is timed over at the widest Fig. 5 bucket
+DRAW_REPS = 10
 
 # published peaks of one H100 SXM (dense, full power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -238,7 +262,7 @@ BF16_OPS_PER_S = 989e12        # bf16 products on the tensor cores
 TF32X3_OPS_PER_S = 495e12 / 3
 #: the libraries built beside the event loop's (one nvcc each, all at once)
 LIBRARIES = ("flash_attention", "flash_attention_bwd", "ssd_scan",
-             "alock_tick")
+             "alock_tick", "draw_stream")
 #: scalar 32/64-bit operations of one event step besides the argmin,
 #: counted from the kernel source: phase resolve and draw hand-off ~14,
 #: the longest switch arm ~20, cost application ~20, accounting ~10
@@ -371,6 +395,18 @@ def bound_row(nbytes, nops, ops_per_s):
     return {"bytes": nbytes, "operations": nops, "bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "bound_bytes_ms": b_ms, "bound_operations_ms": o_ms}
+
+
+def draw_bound(B, n_events, kz, rw):
+    """The draw stream of ``B`` replicas x ``n_events`` as a kernels-phase
+    row. ``operations``: DRAW_HASHES threefry2x32 hashes of THREEFRY_OPS
+    each, the uniforms' and randint's conversions and one compare a zcdf
+    entry, per event, over the INT32 rate. ``bytes``: the outputs written
+    once (the operands are a few hundred bytes a replica)."""
+    per_event = (DRAW_HASHES[rw] * THREEFRY_OPS
+                 + (3 if rw else 2) * UNIFORM_OPS + RANDINT_OPS + kz)
+    return bound_row(4 * (4 if rw else 3) * B * n_events,
+                     B * n_events * per_event, INT32_OPS_PER_S)
 
 
 def visible_pairs(S, causal, window):
@@ -1374,12 +1410,17 @@ def sharded_phases(torch, np, batch, exp, res, dev):
         if stats["launches"] != dispatches * D or stats["launches"] <= 0:
             problems.append(f"launches {stats['launches']} != "
                             f"{dispatches * D}")
+        if stats["draw_launches"] != stats["launches"]:
+            problems.append(f"draw-kernel launches "
+                            f"{stats['draw_launches']} != shards "
+                            f"{stats['launches']}")
         emit({"phase": "sharded", "layout": name, "devices": D,
               "chunk": chunk, "buckets": len(rows),
               "bucket_rows": sorted(set(rows)), "equal": not problems,
               "dispatches": stats["dispatches"],
               "dispatches_formula": dispatches,
-              "kernel_launches": stats["launches"], "wall_seconds": wall,
+              "kernel_launches": stats["launches"],
+              "draw_launches": stats["draw_launches"], "wall_seconds": wall,
               "seconds": stats["seconds"],
               "peak_device_memory_mib": peak_mib,
               "smem_plan_last": stats["smem_plan"], "problems": problems})
@@ -1441,6 +1482,91 @@ def pairs_phase(torch, cases):
     emit({"phase": "pairs", "tolerance": 0, "equal": ok, "cases": rows})
     if not ok:
         raise SystemExit(f"pairs: the hi/lo outputs disagree: {rows}")
+
+
+def draw_stream_phase(torch, dev, wide):
+    """The draw-stream kernel (``precompute_draws(backend="kernel")``, one
+    launch) against its plain version on the card, ``torch.equal`` on
+    every output: every case of ``DRAW_GRID`` at the four ``DRAW_SEEDS``
+    (P = 3 with its last phase padded, replicas whose first phase starts
+    after event 0), one replica, and ``wide`` — ``(seed, edges, zcdf, N,
+    kpn)`` of the widest Fig. 5 bucket — at ``N_EVENTS`` by digest, timed
+    against ``draw_bound`` and the plain route."""
+    import hashlib
+    import itertools
+    from repro_torch.kernels.event_loop import draws
+    from repro_torch.kernels.event_loop.ops import precompute_draws
+
+    def both(seed, edges, zcdf, n_events, N, kpn, rw):
+        before = draws.launches()
+        k = precompute_draws(seed, edges, zcdf, n_events, N, kpn, rw=rw,
+                             device=dev, backend="kernel")
+        launched = draws.launches() - before
+        p = precompute_draws(seed, edges, zcdf, n_events, N, kpn, rw=rw,
+                             device=dev, backend="plain")
+        return k, p, launched
+
+    gen = torch.Generator().manual_seed(25)
+    rows = []
+    cases = [dict(zip(DRAW_GRID, v))
+             for v in itertools.product(*DRAW_GRID.values())]
+    cases.append(dict(rw=True, P=3, N=20, kpn=200, B=1))
+    for c in cases:
+        B, P, kpn = c.get("B", len(DRAW_SEEDS)), c["P"], c["kpn"]
+        seed = torch.tensor(DRAW_SEEDS[-B:], dtype=torch.int32)
+        edges = torch.zeros((B, P), dtype=torch.int32)
+        if P > 1:
+            edges[:, 0] = 3 * torch.arange(B, dtype=torch.int32)
+            edges[:, 1] = 700 + torch.arange(B, dtype=torch.int32)
+            edges[:, 2:] = 2**31 - 1          # pad_phases' padded phase
+        w = torch.rand((B, P, kpn), generator=gen, dtype=torch.float64) ** 3
+        zcdf = torch.cumsum((w + 1e-3) / (w + 1e-3).sum(-1, keepdim=True),
+                            -1).float()
+        k, p, launched = both(seed.to(dev), edges.to(dev), zcdf.to(dev),
+                              DRAW_EVENTS, c["N"], kpn, c["rw"])
+        rows.append({**c, "B": B, "n_events": DRAW_EVENTS,
+                     "launches": launched, "outputs": len(k),
+                     "equal": len(k) == len(p) and all(
+                         torch.equal(a, b) for a, b in zip(k, p))})
+    seed, edges, zcdf, N, kpn = wide
+    B = int(seed.shape[0])
+    k, p, launched = both(seed, edges, zcdf, N_EVENTS, N, kpn, False)
+
+    def digest(out):
+        h = hashlib.sha256()
+        for a in out:
+            h.update(a.cpu().numpy().tobytes())
+        return h.hexdigest()
+    dk, dp = digest(k), digest(p)
+    del k, p
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(DRAW_REPS):
+        precompute_draws(seed, edges, zcdf, N_EVENTS, N, kpn, device=dev,
+                         backend="kernel")
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / DRAW_REPS
+    start.record()
+    precompute_draws(seed, edges, zcdf, N_EVENTS, N, kpn, device=dev,
+                     backend="plain")
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    bound = draw_bound(B, N_EVENTS, int(zcdf.shape[-1]), False)
+    rows.append({"case": "widest Fig. 5 bucket", "B": B,
+                 "n_events": N_EVENTS, "N": N, "kpn": kpn,
+                 "launches": launched, "digest": dk, "plain_digest": dp,
+                 "equal": dk == dp})
+    ok = all(r["equal"] and r["launches"] == 1 for r in rows)
+    emit({"phase": "draw_stream", "tolerance": 0, "equal": ok,
+          "cases": rows, "ms": ms, "reps": DRAW_REPS, "plain_ms": plain_ms,
+          "bound": bound, "x_bound": ms / bound["bound_ms"],
+          "plain_over_kernel": plain_ms / ms})
+    if not ok:
+        raise SystemExit("draw_stream: the draw kernel and its plain "
+                         "version disagree")
 
 
 def analysis_phase(torch, dev):
@@ -1608,6 +1734,12 @@ def main():
           "schedule_slabs_equal": slab_equal})
     if not prng_equal:
         raise SystemExit("prng: the draw stream differs between cpu and cuda")
+    # the draw kernel against its plain version, on the card
+    wide = batched([Workload("alock", 20, TPN, 1000, locality=l)
+                    for l in LOCALITY], N_EVENTS, N_SEEDS)
+    draw_stream_phase(torch, dev, (wide.seed, wide.edges, wide.zcdf, 20,
+                                   50))
+    del wide
 
     # the registry's open-loop workloads: ramp rates x algorithms, and
     # burst-storm's admission policies x algorithms
@@ -2080,6 +2212,9 @@ def main():
     problems = []
     if launches != n_buckets or launches <= 0:
         problems.append(f"kernel launches {launches} != buckets {n_buckets}")
+    if stats["draw_launches"] != launches:
+        problems.append(f"draw-kernel launches {stats['draw_launches']} != "
+                        f"shards {launches}")
     if stats["dispatches"] != n_buckets:
         problems.append(f"dispatches {stats['dispatches']} != {n_buckets}")
     if len(res) != len(exp):
@@ -2139,6 +2274,7 @@ def main():
           "distinct_workloads": len(distinct), "seeds": N_SEEDS,
           "n_events": N_EVENTS, "replicas": len(distinct) * N_SEEDS,
           "buckets": n_buckets, "kernel_launches": launches,
+          "draw_launches": stats["draw_launches"],
           "dispatches": stats["dispatches"], "wall_seconds": wall,
           "seconds": stats["seconds"],
           "simulated_events_per_second": sim_events / wall,

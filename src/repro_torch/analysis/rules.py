@@ -415,9 +415,10 @@ def _bucket_sigs(_eps):
 
 def kernel_builds() -> list:
     """``(stem, source, flags, load)`` of every kernel library the port
-    builds: the five ``csrc/*.cu`` and their wrappers' loaders."""
+    builds: the six ``csrc/*.cu`` and their wrappers' loaders."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.alock_tick import kernel as k2
+    from repro_torch.kernels.event_loop import draws
     from repro_torch.kernels.event_loop import kernel as k1
     from repro_torch.kernels.flash_attention import kernel as k3
     from repro_torch.kernels.flash_attention import kernel_bwd as k45
@@ -430,7 +431,8 @@ def kernel_builds() -> list:
             ("flash_attention_bwd", _build.CSRC / "flash_attention_bwd.cu",
              k45.NVCC_FLAGS, k45.load),
             ("ssd_scan", _build.CSRC / "ssd_scan.cu", k6.NVCC_FLAGS,
-             k6.load)]
+             k6.load),
+            ("draw_stream", draws.SOURCE, draws.NVCC_FLAGS, draws.load)]
 
 
 def check_build_key(key_fn=None, device=None) -> list[Finding]:

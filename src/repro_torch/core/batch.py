@@ -43,8 +43,9 @@ joined in row order before a bucket's results are made. Draws are keyed
 per row by the seed, so every layout gives the same bits.
 
 ``exec_stats()`` counts engine dispatches (one per bucket unsharded, one
-per superchunk sharded) and kernel launches (one per shard), times the
-stages, counts the events drawn against the events the loop ran, and shows
+per superchunk sharded) and the event-loop and draw-stream kernels'
+launches (one each per shard), times the stages, counts the events drawn
+against the events the loop ran, and shows
 the event-loop kernel's last shared-memory plan. Each host stage is one
 ``stage(name, counter)``: its host-clock time goes to ``exec_stats()
 ["seconds"][counter]`` and, while ``torch.profiler`` records, it is a host
@@ -70,6 +71,7 @@ from repro_torch.core.cost_model import CostModel, N_COST_ROWS
 from repro_torch.core.sim import (LAT_SAMPLES, SimConfig, SimResult,
                                   topology)
 from repro_torch.device import resolve_backend, resolve_device
+from repro_torch.kernels.event_loop import draws as _draws
 from repro_torch.kernels.event_loop import kernel as _kernel
 from repro_torch.kernels.event_loop import smem_plan as _smem_plan
 from repro_torch.kernels.event_loop.ops import (precompute_draws,
@@ -92,8 +94,10 @@ IN_FLIGHT_SHARE = 0.5
 # superchunk (its D shards together, as the reference's _note_call counts);
 # "launches" is the event-loop kernel's own launch counter
 # (kernels/event_loop/kernel.py), one per shard, read here so a run can show
-# that its buckets went through the kernel. The reference's "compiles" has
-# no counterpart: the kernel library is built once per source hash.
+# that its buckets went through the kernel; "draw_launches" the draw-stream
+# kernel's (kernels/event_loop/draws.py), one per shard drawn by it. The
+# reference's "compiles" has no counterpart: the kernel library is built
+# once per source hash.
 # "seconds" by stage. Host-clock sums of the host's own stages, disjoint:
 # "lower" (lowering and bucketing the workloads, packing each bucket),
 # "issue" (enqueueing each shard: operand upload, draw stream, arrival
@@ -145,13 +149,14 @@ def stage(name: str, counter: str | None = None):
 
 
 def exec_stats() -> dict:
-    """Snapshot of {dispatches, launches, seconds, events, smem_plan} since
-    the last reset. ``seconds``: lower, issue, plan, wait, draws, engine,
-    engine_only, aggregate, results, wall (see the comment above
-    ``_SECONDS``); ``events``: {drawn, run}."""
+    """Snapshot of {dispatches, launches, draw_launches, seconds, events,
+    smem_plan} since the last reset. ``seconds``: lower, issue, plan, wait,
+    draws, engine, engine_only, aggregate, results, wall (see the comment
+    above ``_SECONDS``); ``events``: {drawn, run}."""
     plan = _smem_plan.last_plan()
     return {"dispatches": _STATS["dispatches"],
-            "launches": _kernel.launches(), "seconds": dict(_SECONDS),
+            "launches": _kernel.launches(),
+            "draw_launches": _draws.launches(), "seconds": dict(_SECONDS),
             "events": dict(_EVENTS),
             "smem_plan": None if plan is None else plan.as_dict()}
 
@@ -163,6 +168,7 @@ def reset_exec_stats() -> None:
     for k in _EVENTS:
         _EVENTS[k] = 0
     _kernel.reset_launches()
+    _draws.reset_launches()
     _smem_plan.clear_plan()
 
 
@@ -436,7 +442,7 @@ def _issue_shard(key, thread_node, lock_node, wl: WorkloadOperands,
         with stage("sweep.draws"):
             streams = precompute_draws(wd.seed, wd.edges, wd.zcdf, n_events,
                                        N, K // N, rw=alg == "alock-rw",
-                                       device=dev)
+                                       device=dev, backend=backend)
         plan = None
         if R:
             with stage("sweep.plan", "plan"):

@@ -54,6 +54,7 @@
 #include <stdint.h>
 
 #include "flash_hopper.cuh"
+#include "threefry.cuh"
 
 namespace {
 
@@ -62,6 +63,7 @@ using flash::bar_arrive_copies;
 using flash::bar_init;
 using flash::bar_wait;
 using flash::saddr;
+using threefry::threefry_bits;
 
 // core/machine.py program counters (the ALock's twelve)
 enum : int {
@@ -137,34 +139,6 @@ __host__ __device__ inline Layout layout(int T, int chain_warps, int S,
 }
 
 // -- the drawn schedule -------------------------------------------------------
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-// b1 ^ b2 of threefry2x32 (20 rounds) under key (k0, k1) at counter
-// words (c0, c1): core/prng.py::threefry2x32, then random_bits' xor.
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
-                                                  uint32_t c0, uint32_t c1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = c0 + k0, x1 = c1 + k1;
-#define TF_ROUND(r) \
-  x0 += x1;         \
-  x1 = rotl(x1, r); \
-  x1 ^= x0;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k1; x1 += k2 + 1u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k2; x1 += k0 + 2u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k0; x1 += k1 + 3u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k1; x1 += k2 + 4u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k2; x1 += k0 + 5u;
-#undef TF_ROUND
-  return x0 ^ x1;
-}
 
 __device__ __forceinline__ uint32_t mod_span(uint32_t x, const Words& w) {
   const uint32_t h = __umulhi(w.magic, x);

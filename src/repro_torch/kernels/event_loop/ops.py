@@ -12,9 +12,11 @@ asked for; ``"auto"`` is the kernel on a CUDA device and the plain version
 on an explicitly requested CPU.
 
 The state-independent half of the workload draw stream is precomputed
-here (``precompute_draws``) with the counter-based generator of
-``core/prng.py``: the raw locality uniform, the remote-node offset and the
-phase-resolved Zipf offset depend only on ``(seed, event index)``, never
+here (``precompute_draws``: one launch of the CUDA kernel ``draws.py`` /
+``csrc/draw_stream.cu`` on the kernel backend, the counter-based generator
+of ``core/prng.py`` in torch ops on the plain one): the raw locality
+uniform, the remote-node offset and the phase-resolved Zipf offset depend
+only on ``(seed, event index)``, never
 on simulation state. The thread-dependent half (comparing the uniform
 against ``locality[phase, tid]``) runs inside the loop, because ``tid`` is
 the argmin of the ready clocks and only exists at run time. The open
@@ -39,6 +41,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.device import resolve_backend, resolve_device
+from repro_torch.kernels.event_loop import draws as _draws
 from repro_torch.kernels.event_loop import i32pair
 from repro_torch.kernels.event_loop import kernel as _kernel
 from repro_torch.kernels.event_loop.ref import LAT_SAMPLES, run_events_plain
@@ -70,7 +73,7 @@ def _zipf_offsets(u3, ph, zcdf, kpn):
 
 
 def precompute_draws(seed, edges, zcdf, n_events: int, N: int, kpn: int,
-                     rw: bool = False, device="cuda"):
+                     rw: bool = False, device="cuda", backend: str = "auto"):
     """The state-independent per-event draw stream, replica-batched.
 
     ``seed (B,) i32``, ``edges (B, P) i32``, ``zcdf (B, P, kpn) f32``
@@ -81,13 +84,24 @@ def precompute_draws(seed, edges, zcdf, n_events: int, N: int, kpn: int,
     against the phase active at event ``i``. ``rw=True`` is the alock-rw
     engine's 4-way split and appends the reader/writer coin ``u4 f32``.
 
-    The event axis is processed in chunks so that temporaries stay
-    bounded whatever ``B * n_events`` is.
+    ``backend="kernel"`` makes the whole stream in one launch of the CUDA
+    kernel ``draws.draw_stream`` (``csrc/draw_stream.cu``) and needs a
+    CUDA device; ``"plain"`` runs ``core/prng.py`` in torch integer ops on
+    whatever device was asked for, the event axis in chunks so that
+    temporaries stay bounded whatever ``B * n_events`` is; ``"auto"`` is
+    the kernel on a CUDA device and the plain version on an explicitly
+    requested CPU. The two give the same bits.
     """
     dev = resolve_device(device)
+    backend = resolve_backend(backend, dev)
     seed = torch.as_tensor(seed).to(dev)
     edges = torch.as_tensor(edges).to(dev)
     zcdf = torch.as_tensor(zcdf).to(dev)
+    if backend == "kernel":
+        # prng.key takes the seed's low 32 bits, as this cast does
+        return _draws.draw_stream(seed.to(torch.int32).contiguous(),
+                                  edges.contiguous(), zcdf.contiguous(),
+                                  n_events, N, kpn, rw=rw)
     B = seed.shape[0]
     P = edges.shape[1]
     n_sub = 4 if rw else 3
@@ -197,7 +211,8 @@ def run_events(alg, T, N, K, n_events, wl, thread_node, lock_node, *,
     is_rw = alg == "alock-rw"
     if streams is None:
         streams = precompute_draws(wl.seed, wl.edges, wl.zcdf, n_events, N,
-                                   K // N, rw=is_rw, device=dev)
+                                   K // N, rw=is_rw, device=dev,
+                                   backend=backend)
     else:
         streams = tuple(_as_tensor(s, dev) for s in streams)
         if len(streams) != (4 if is_rw else 3):

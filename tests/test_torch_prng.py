@@ -91,3 +91,31 @@ def test_uniform_is_mantissa_construction():
     u = prng.uniform_from_bits(bits)
     assert u.dtype == torch.float32
     assert u.tolist() == [0.0, 2.0 ** -23, 1.0 - 2.0 ** -23, 0.5]
+
+
+@pytest.mark.parametrize("rw", [False, True])
+@pytest.mark.parametrize("P,N,kpn", [(1, 1, 1), (3, 2, 50), (3, 20, 200)])
+def test_plain_backend_equals_the_reference(P, N, kpn, rw):
+    """``backend="plain"`` (the version the draw kernel is held against on
+    the card) is the default CPU route, bit for bit the reference's; P = 3
+    pads its last phase as ``pad_phases`` does."""
+    rng = np.random.default_rng(P * N + kpn)
+    B = len(SEEDS)
+    edges = np.zeros((B, P), np.int32)
+    if P > 1:
+        edges[:, 1] = N_EVENTS // 2 + np.arange(B)
+        edges[:, 2:] = np.iinfo(np.int32).max
+    zcdf = _skewed_zcdf(B, P, kpn, rng)
+    with jax.enable_x64(True):
+        ref = R.ref_ops.precompute_draws(
+            jnp.asarray(SEEDS), jnp.asarray(edges), jnp.asarray(zcdf),
+            N_EVENTS, N, kpn, rw=rw)
+        ref = [np.asarray(r) for r in ref]
+    args = (torch.from_numpy(SEEDS), torch.from_numpy(edges),
+            torch.from_numpy(zcdf), N_EVENTS, N, kpn)
+    got = precompute_draws(*args, rw=rw, device="cpu", backend="plain")
+    auto = precompute_draws(*args, rw=rw, device="cpu")
+    names = ["u1", "r2", "r3", "u4"][:len(ref)]
+    R.assert_bitwise([_bits(r) for r in ref],
+                     [_bits(g.numpy()) for g in got], names)
+    assert all(torch.equal(a, b) for a, b in zip(got, auto))
