@@ -51,6 +51,17 @@ per source, all started together), then prints one JSON object per phase:
               plan, the C and Python tables, the bytes, operations and
               latency bounds and which binds, the events the open loop's
               data needs (``diag``)
+  rw_ycsb     the widest bucket of the benchmark's reader-writer lock table
+              (``simbench/configs/ycsb-rw-1000.json``: alock-rw, T = 160,
+              N = 20, K = 1,000, Zipf 0.99, YCSB A, B and C x 32 seeds, B =
+              96), packed as ``sweep`` packs it: at 3,000 events the
+              kernels (the draw kernel, then K1 with a four-column
+              ``diag``) against the plain route (plain draws, plain engine),
+              ``torch.equal`` on the four draw streams, the six outputs and
+              the counts of lock operations begun and begun shared; then
+              K1 alone at 150,000 events over 3 launches after a warm-up,
+              with its bound, the RW draw kernel's time, and each mix's
+              share of operations begun shared
   golden      the kernel's outputs for six full-width replicas equal the
               digests the JAX reference wrote to
               ``tests/golden/torch_fig5_full.json``
@@ -250,6 +261,12 @@ DRAW_EVENTS = 2047
 DRAW_GRID = dict(rw=(False, True), P=(1, 3), N=(1, 2, 20), kpn=(1, 50, 200))
 #: launches the draw kernel is timed over at the widest Fig. 5 bucket
 DRAW_REPS = 10
+#: the benchmark's reader-writer lock table under YCSB A, B and C: its
+#: widest bucket, the job seed its workloads take, and the event count at
+#: which the kernels are held against the plain route
+RW_CONFIG = os.path.join(HERE, "simbench", "configs", "ycsb-rw-1000.json")
+RW_SEED = 26
+RW_EV_CUT = 3000
 
 # published peaks of one H100 SXM (dense, full power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1569,6 +1586,117 @@ def draw_stream_phase(torch, dev, wide):
                          "version disagree")
 
 
+def rw_ycsb_phase(torch, dev):
+    """``ycsb-rw-1000``'s widest bucket (its 20-node workloads, YCSB A, B
+    and C, x ``n_seeds``), lowered and packed as ``sweep`` does: at
+    ``RW_EV_CUT`` events the draw kernel and K1 against the plain draws
+    and the plain engine on the card, ``torch.equal`` on every draw
+    stream, every output and the four-column ``diag`` (events run, path,
+    lock operations begun, begun shared); then at ``N_EVENTS`` the RW draw
+    kernel's time and K1's alone (3 launches after a warm-up, CUDA events),
+    K1's bound and each mix's share of operations begun shared."""
+    from repro_torch.core import batch
+    from repro_torch.core.cost_model import CostModel
+    from repro_torch.kernels.event_loop import smem_plan
+    from repro_torch.kernels.event_loop.ops import (precompute_draws,
+                                                    run_events)
+    from repro_torch.workloads import lower, to_device
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    from simbench.inputs import grid
+    from simbench.program import to_workload
+
+    with open(RW_CONFIG) as f:
+        cfg = json.load(f)
+    S, ds = cfg["n_seeds"], grid(cfg)
+    widest = max(d["n_nodes"] for d in ds)
+    ws = [to_workload(dict(d, seed=RW_SEED)) for d in ds
+          if d["n_nodes"] == widest]
+    T, N, K = (ws[0].n_nodes * ws[0].threads_per_node, ws[0].n_nodes,
+               ws[0].n_locks)
+    alg = ws[0].alg
+
+    def packed(n_events):
+        lows = [lower(w, n_events) for w in ws]
+        tn, ln, _, wl = batch._pack(lows[0].shape_key,
+                                    [lw.operands for lw in lows], S, 1,
+                                    CostModel())
+        return (torch.from_numpy(tn).to(dev), torch.from_numpy(ln).to(dev),
+                to_device(wl, dev))
+
+    def draws(wl, n_events, backend):
+        return precompute_draws(wl.seed, wl.edges, wl.zcdf, n_events, N,
+                                K // N, rw=True, device=dev, backend=backend)
+
+    def engine(wl, tn, ln, n_events, streams, backend):
+        diag = torch.full((int(wl.seed.shape[0]), 4), -7, dtype=torch.int32,
+                          device=dev)
+        out = run_events(alg, T, N, K, n_events, wl, tn, ln, backend=backend,
+                         device=dev, streams=streams, diag=diag)
+        return out, diag
+
+    def elapsed_ms(fn, reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    tn, ln, wl = packed(RW_EV_CUT)
+    B = int(wl.seed.shape[0])
+    sk, sp = draws(wl, RW_EV_CUT, "kernel"), draws(wl, RW_EV_CUT, "plain")
+    draws_equal = len(sk) == len(sp) == 4 and all(
+        torch.equal(a, b) for a, b in zip(sk, sp))
+    out_k, diag_k = engine(wl, tn, ln, RW_EV_CUT, sk, "kernel")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p, diag_p = engine(wl, tn, ln, RW_EV_CUT, sp, "plain")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    outs_equal = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+    diag_equal = torch.equal(diag_k, diag_p)
+    ops_cut, reads_cut = (int(diag_k[:, j].sum()) for j in (2, 3))
+    sane = (bool((diag_k[:, 0] == RW_EV_CUT).all())
+            and 0 < reads_cut < ops_cut < B * RW_EV_CUT
+            and int(out_k[0].sum()) > 0)
+    del sk, sp, out_k, out_p, wl
+
+    tn, ln, wl = packed(N_EVENTS)
+    draw_ms = elapsed_ms(lambda: draws(wl, N_EVENTS, "kernel"), 3)
+    streams = draws(wl, N_EVENTS, "kernel")
+    _, diag = engine(wl, tn, ln, N_EVENTS, streams, "kernel")   # warm-up
+    ms = elapsed_ms(lambda: run_events(
+        alg, T, N, K, N_EVENTS, wl, tn, ln, backend="kernel", device=dev,
+        streams=streams), 3)
+    plan = smem_plan.last_plan().as_dict()
+    bound = k1_bound(alg, wl, streams, T, N, K, N_EVENTS)
+    d = diag.cpu()
+    mixes = []
+    for c, w in enumerate(ws):
+        ops = int(d[c * S:(c + 1) * S, 2].sum())
+        reads = int(d[c * S:(c + 1) * S, 3].sum())
+        mixes.append({"read_frac": w.read_frac, "ops": ops, "reads": reads,
+                      "reads_over_ops": reads / ops,
+                      "ops_over_events": ops / (S * N_EVENTS)})
+    del streams, wl
+    ok = draws_equal and outs_equal and diag_equal and sane
+    emit({"phase": "rw_ycsb", "tolerance": 0, "equal": ok,
+          "shape": dict(alg=alg, T=T, N=N, K=K, B=B, zipf_s=ws[0].zipf_s,
+                        read_frac=[w.read_frac for w in ws]),
+          "cut": {"n_events": RW_EV_CUT, "draws_equal": draws_equal,
+                  "outputs_equal": outs_equal, "diag_equal": diag_equal,
+                  "ops": ops_cut, "reads": reads_cut, "plain_ms": plain_ms},
+          "n_events": N_EVENTS, "k1_ms": ms, "reps": 3,
+          "draw_kernel_ms": draw_ms, "smem_plan": plan, **k1_row(bound),
+          "mixes": mixes})
+    if not ok:
+        raise SystemExit("rw_ycsb: the kernels and the plain route disagree "
+                         "on the reader-writer lock table")
+
+
 def analysis_phase(torch, dev):
     """``python -m repro_torch.analysis`` in process, once every library
     is built: the lint with its card legs (``--strict --device cuda``:
@@ -1785,7 +1913,7 @@ def main():
         request; returns its outputs and its ``diag``."""
         tn, ln, _ = topology(alg, N, T // N, K)
         B = int(wl.seed.shape[0])
-        diag = torch.zeros((B, 2), dtype=torch.int32, device=dev)
+        diag = torch.zeros((B, 4), dtype=torch.int32, device=dev)
         out = el_kernel.run_events_kernel(
             alg, T, N, K, n_events, wl, torch.from_numpy(tn).to(dev),
             torch.from_numpy(ln).to(dev), streams, lat_samples=1 << 15,
@@ -1797,7 +1925,9 @@ def main():
                 plan_edit=None):
         """Kernel (the planned launch, then each of ``warps`` replicas per
         block) against the plain version on the same draws and plan;
-        ``plan_edit`` rewrites the arrival plan first."""
+        ``plan_edit`` rewrites the arrival plan first. Each of ``warps``
+        also holds the kernel's ``diag`` (events run, path, lock operations
+        begun, begun shared) to the plain version's."""
         tn, ln, _ = topology(alg, N, T // N, K)
         streams = precompute_draws(wl.seed, wl.edges, wl.zcdf, n_events, N,
                                    K // N, rw=alg == "alock-rw", device=dev)
@@ -1810,8 +1940,10 @@ def main():
                            backend="kernel", **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        diag_p = torch.zeros((int(wl.seed.shape[0]), 4), dtype=torch.int32,
+                             device=dev)
         out_p = run_events(alg, T, N, K, n_events, wl, tn, ln,
-                           backend="plain", **kw)
+                           backend="plain", diag=diag_p, **kw)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         equal = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
@@ -1821,7 +1953,9 @@ def main():
         for w in warps:
             out_w, diag = direct(alg, T, N, K, n_events, wl, streams, plan, w)
             by_warps[w] = {"equal": all(torch.equal(a, b) for a, b in
-                                        zip(out_w, out_p)),
+                                        zip(out_w, out_p))
+                           and torch.equal(diag, diag_p),
+                           "diag_equal": torch.equal(diag, diag_p),
                            **smem_plan.last_plan().as_dict()}
             equal = equal and by_warps[w]["equal"]
         ms = None
@@ -1884,7 +2018,8 @@ def main():
                            "B": int(wl.seed.shape[0]), "ops": c["ops"],
                            "plain_ms": c["plain_ms"],
                            "warps": {w: {k: v[k] for k in (
-                               "equal", "warps", "blocks", "tail_replicas")}
+                               "equal", "diag_equal", "warps", "blocks",
+                               "tail_replicas")}
                                for w, v in c["warps"].items()},
                            **tables(alg, N_S * TPN_S, N_S, K_S, P, 0, 3)})
     # the main path's widest bucket: alock, 20 nodes x 8 threads, 1000
@@ -1905,7 +2040,8 @@ def main():
                    "B": int(wl_cut.seed.shape[0]), "n_events": EV_CUT,
                    "ms": ms_cut, "plain_ms": plain_ms_cut,
                    "warps": {w: {k: v[k] for k in (
-                       "equal", "warps", "blocks", "tail_replicas")}
+                       "equal", "diag_equal", "warps", "blocks",
+                       "tail_replicas")}
                        for w, v in c["warps"].items()}})
     emit({"phase": "kernel_check", "tolerance": 0,
           "all_equal": all(c["equal"] for c in checks), "cases": checks})
@@ -1957,7 +2093,7 @@ def main():
                             "pointer_path": c["diag"][:, 1].tolist(),
                             "events_run": c["diag"][:, 0].tolist(),
                             "warps": {w: {k: v[k] for k in (
-                                "equal", "warps", "blocks",
+                                "equal", "diag_equal", "warps", "blocks",
                                 "tail_replicas")}
                                 for w, v in c["warps"].items()},
                             **tables(alg, OT, ON, OK, P, R, 3)})
@@ -2056,6 +2192,9 @@ def main():
                    "events_run_mean": float(open_events.mean()),
                    "events_run_max": float(open_events.max()),
                    **k1_row(bound_open)}})
+
+    # -- rw_ycsb: the benchmark's reader-writer lock table at full width ---
+    rw_ycsb_phase(torch, dev)
 
     # -- golden: full-width replicas against the JAX reference's digests ----
     with open(os.path.join(HERE, "tests", "golden",

@@ -120,13 +120,16 @@ IN_FLIGHT_SHARE = 0.5
 # replicas x n_events of every shard (the draw stream is made for every
 # event), "run" the events the loop ran (an open-loop replica stops at the
 # first event at which it is idle for good: K1's ``diag``; a closed one
-# runs every event). "smem_plan" is the event-loop kernel's last
-# shared-memory plan (None before any launch).
+# runs every event), "ops" the lock operations the loop began (its NCS
+# steps, the only events at which it reads the draws) and "reads" those
+# begun shared (alock-rw's readers; 0 for every other algorithm), both
+# counted by the engine into its ``diag``. "smem_plan" is the event-loop
+# kernel's last shared-memory plan (None before any launch).
 _STATS = {"dispatches": 0}
 _SECONDS = {"lower": 0.0, "issue": 0.0, "plan": 0.0, "wait": 0.0,
             "draws": 0.0, "engine": 0.0, "engine_only": 0.0,
             "aggregate": 0.0, "results": 0.0, "wall": 0.0}
-_EVENTS = {"drawn": 0, "run": 0}
+_EVENTS = {"drawn": 0, "run": 0, "ops": 0, "reads": 0}
 _STREAMS: dict = {}
 
 
@@ -152,7 +155,7 @@ def exec_stats() -> dict:
     """Snapshot of {dispatches, launches, draw_launches, seconds, events,
     smem_plan} since the last reset. ``seconds``: lower, issue, plan, wait,
     draws, engine, engine_only, aggregate, results, wall (see the comment
-    above ``_SECONDS``); ``events``: {drawn, run}."""
+    above ``_SECONDS``); ``events``: {drawn, run, ops, reads}."""
     plan = _smem_plan.last_plan()
     return {"dispatches": _STATS["dispatches"],
             "launches": _kernel.launches(),
@@ -200,6 +203,9 @@ class BatchResult(NamedTuple):
     per_thread_ops: np.ndarray    # (S, T)
     reacquires: np.ndarray        # (S,)
     passes: np.ndarray            # (S,)
+    # (S, 3) per seed: the sum, count and largest of the latency ring's
+    # valid samples (``_lat_stats``, reduced on the engine's device)
+    lat_stats: np.ndarray
     # open-loop (Workload.arrivals) extras — None on closed-loop runs
     arr_ns: np.ndarray | None = None      # (S, R) request arrival times
     wait_ns: np.ndarray | None = None     # (S, R) queue waits, -1 padded
@@ -274,8 +280,16 @@ class BatchResult(NamedTuple):
     @property
     @stage("result.latency", "results")
     def mean_lat_us(self) -> float:
-        pool = self._lat_pool()
-        return float(pool.mean()) / 1e3 if len(pool) else float("nan")
+        st = self.lat_stats
+        total, n = (int(x) for x in st[:, :2].sum(axis=0))
+        if not n:
+            return float("nan")
+        if int(st[:, 2].max()) * n < 2**53:
+            # every partial sum of the pool is then an integer below 2**53,
+            # which float64 holds exactly: NumPy's mean of the pool, in any
+            # order of summation, is this sum over n
+            return float(total) / n / 1e3
+        return float(self._lat_pool().mean()) / 1e3
 
     @property
     @stage("result.latency", "results")
@@ -397,7 +411,18 @@ class _Shard(NamedTuple):
     stream: object           # torch.cuda.Stream, or None on the CPU
     out: tuple               # the engine's device outputs
     marks: tuple             # (draws start, engine start, engine end)
-    diag: object             # open loop: (B, 2) i32 events run; else None
+    diag: object             # (B, 4) i32: events run, path, ops, reads
+    lat_stats: object        # (B, 3) i64: ``_lat_stats`` of the ring
+
+
+def _lat_stats(lat: torch.Tensor) -> torch.Tensor:
+    """Per replica the sum, count and largest of the latency ring's valid
+    (non-negative) samples, ``(B, 3)`` int64, where the ring lies: what
+    ``BatchResult.mean_lat_us`` needs without a pass over the ring on the
+    host."""
+    valid = lat >= 0
+    return torch.stack((torch.where(valid, lat, 0).sum(1), valid.sum(1),
+                        lat.amax(1)), 1)
 
 
 class _Bucket:
@@ -424,9 +449,10 @@ class _Issued(NamedTuple):
 def _issue_shard(key, thread_node, lock_node, wl: WorkloadOperands,
                  backend: str, dev, stream) -> _Shard:
     """Enqueue one shard (its rows of a bucket) on ``dev``: upload its
-    operands, draw its stream (and plan), launch its engine call (with a
-    ``diag`` for an open-loop shard). ``wl`` leaves (numpy) carry the
-    shard's rows."""
+    operands, draw its stream (and plan), launch its engine call with a
+    ``(B, 4)`` ``diag`` (events run, the open loop's path, lock operations
+    begun and begun shared). ``wl`` leaves (numpy) carry the shard's
+    rows."""
     alg, T, N, K, n_events, R = key
     ctx = (contextlib.nullcontext() if stream is None
            else torch.cuda.stream(stream))
@@ -449,13 +475,31 @@ def _issue_shard(key, thread_node, lock_node, wl: WorkloadOperands,
                 plan = precompute_plan(wd, n_events, device=dev)
         d1 = _mark(dev)
         with stage("sweep.launch"):
-            diag = (torch.zeros((wd.seed.shape[0], 2), dtype=torch.int32,
-                                device=dev) if R else None)
+            diag = torch.zeros((wd.seed.shape[0], 4), dtype=torch.int32,
+                               device=dev)
             out = run_events(alg, T, N, K, n_events, wd, tn, ln,
                              backend=backend, device=dev, streams=streams,
                              plan=plan, diag=diag)
         e1 = _mark(dev)
-    return _Shard(dev, stream, out, (d0, d1, e1), diag)
+        lat_stats = _lat_stats(out[1])
+    return _Shard(dev, stream, out, (d0, d1, e1), diag, lat_stats)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t``'s values on the host. From a CUDA device through page-locked
+    memory of the caching host allocator, which the next buckets reuse
+    once the results that view it are gone: no page of a fresh pageable
+    buffer is faulted in for every copy (which made the copy-back of a
+    job's latency rings take from 7 to 47 ms on the host of an NVIDIA H100
+    machine, and a copy out of the page-locked block into NumPy's own
+    memory as much). So a ``BatchResult`` made on a CUDA device holds
+    page-locked host memory while it lives, its latency rings the most of
+    it (256 KiB a replica). A CPU tensor as it is."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host.numpy()
 
 
 def _joined(parts, j: int, B: int) -> np.ndarray:
@@ -480,11 +524,13 @@ def _force_bucket(issued: _Issued, configs, n_events: int, out: list):
             ctx = (contextlib.nullcontext() if sh.stream is None
                    else torch.cuda.stream(sh.stream))
             with ctx:
-                bucket.parts.append(tuple(o.cpu().numpy() for o in sh.out))
-                drawn = sh.out[0].shape[0] * n_events
-                _EVENTS["drawn"] += drawn
-                _EVENTS["run"] += (drawn if sh.diag is None else int(
-                    sh.diag.cpu().numpy()[:, 0].sum(dtype=np.int64)))
+                bucket.parts.append(tuple(_to_host(o) for o in sh.out)
+                                    + (_to_host(sh.lat_stats),))
+                counts = _to_host(sh.diag).sum(axis=0, dtype=np.int64)
+                _EVENTS["drawn"] += sh.out[0].shape[0] * n_events
+                _EVENTS["run"] += int(counts[0])
+                _EVENTS["ops"] += int(counts[2])
+                _EVENTS["reads"] += int(counts[3])
         bucket.pending -= 1
     if bucket.pending == 0:
         with stage("sweep.aggregate", "aggregate"):
@@ -499,6 +545,7 @@ def _aggregate(bucket: _Bucket, configs, n_events: int, out: list):
                  for j in range(len(bucket.parts[0])))
     bucket.parts = []
     done, lat, _lat_n, t_end, nreacq, npass = outs[:6]
+    lat_stats = outs[-1].reshape(C, S, 3)
     done = done.reshape(C, S, T)
     lat = lat.reshape(C, S, LAT_SAMPLES)
     t_end = t_end.reshape(C, S)
@@ -506,7 +553,7 @@ def _aggregate(bucket: _Bucket, configs, n_events: int, out: list):
     npass = npass.reshape(C, S)
     extras = None
     if R:
-        extras = tuple(o.reshape(C, S, R) for o in outs[6:])
+        extras = tuple(o.reshape(C, S, R) for o in outs[6:-1])
 
     for row, i in enumerate(bucket.idxs):
         ops = done[row].sum(axis=1).astype(np.int64)
@@ -520,7 +567,7 @@ def _aggregate(bucket: _Bucket, configs, n_events: int, out: list):
                       sojourn_ns=extras[2][row], rstat=extras[3][row])
         out[i] = BatchResult(configs[i], n_events, bucket.seeds[row], ops,
                              sim_ns, mops, lat[row], done[row], nreacq[row],
-                             npass[row], **kw)
+                             npass[row], lat_stats[row], **kw)
 
 
 def _pack(key, operands: list, S: int, D: int, cm: CostModel):

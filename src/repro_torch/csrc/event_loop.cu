@@ -144,8 +144,10 @@ struct Args {
     long long* soj;          // (B, R) sojourns, pre-filled with -1
     int* rstat;              // (B, R) final request status
     // optional (may be null): per replica the events the loop ran before
-    // it stopped, and 1 where the open-loop pointer path ran
-    int* diag;               // (B, 2)
+    // it stopped, 1 where the open-loop pointer path ran, the lock
+    // operations begun (NCS steps) and how many of them began shared
+    // (alock-rw's RD_TRY; 0 for every other algorithm)
+    int* diag;               // (B, 4)
     int B, W, T, N, K, P, R, n_events, lat_samples;
     size_t stride;           // bytes of one replica's region
 };
@@ -436,6 +438,7 @@ event_loop_kernel(const Args a) {
     long long* lat = a.lat + (size_t)b * a.lat_samples;
 
     int lat_n = 0, lat_pos = 0, nreacq = 0, npass = 0;   // live in lane 0
+    int nops = 0, nreads = 0;            // lock operations begun, shared
     // this lane's slice of the next 32-event draw window, loaded a window
     // ahead and stored to the region's window when it becomes current
     float u1n = 0.f, u4n = 0.f;
@@ -687,6 +690,8 @@ event_loop_kernel(const Args a) {
                 int first;
                 if (RW) first = dw_u4[e] < rfr[tid] ? RD_TRY : SWAP;
                 else first = SPIN ? SL_CAS : SWAP;
+                nops += 1;
+                if (RW) nreads += first == RD_TRY;
                 bud[tid] = -1;
                 nxt[tid] = 0;
                 const int nk = node * kpn + dw_r3[e];
@@ -887,8 +892,11 @@ event_loop_kernel(const Args a) {
         a.nreacq[b] = nreacq;
         a.npass[b] = npass;
         if (a.diag) {
-            a.diag[2 * (size_t)b] = ev_run;
-            a.diag[2 * (size_t)b + 1] = OPEN && mono;
+            int* d = a.diag + 4 * (size_t)b;
+            d[0] = ev_run;
+            d[1] = OPEN && mono;
+            d[2] = nops;
+            d[3] = nreads;
         }
     }
     if constexpr (OPEN) {

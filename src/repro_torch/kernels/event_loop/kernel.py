@@ -99,11 +99,13 @@ def run_events_kernel(alg, T, N, K, n_events, wl, thread_node, lock_node,
     (``smem_plan.plan_for_run``; ``warps`` overrides the request),
     allocates and pre-fills every output (``lat``, ``wq``, ``soj`` = -1),
     launches without synchronising, checks the launch error and raises on
-    anything the kernel does not take. ``diag``, an optional ``(B, 2)``
+    anything the kernel does not take. ``diag``, an optional ``(B, 4)``
     int32 CUDA tensor, receives per replica the events the loop ran before
     it stopped (``n_events`` unless an open-loop replica fell idle for
-    good) and 1 where the open loop took its pointer path (0: the exact
-    R-wide scans, or a closed loop).
+    good), 1 where the open loop took its pointer path (0: the exact
+    R-wide scans, or a closed loop), the lock operations the loop began
+    (its NCS steps) and how many of them began shared (alock-rw's
+    readers; 0 for every other algorithm).
     """
     global LAUNCHES
     R = wl.arr_fix.shape[-1]
@@ -152,7 +154,7 @@ def run_events_kernel(alg, T, N, K, n_events, wl, thread_node, lock_node,
             _check(name, t, i32, (B, R))
         tok, tokcum, qcap = plan.tok, plan.tokcum, plan.qcap
     if diag is not None:
-        _check("diag", diag, i32, (B, 2))
+        _check("diag", diag, i32, (B, 4))
     dev = u1.device
     for t in (wl.edges, thread_node, lock_node, r2, r3) + (
             (arr, tok) if R else ()) + ((diag,) if diag is not None else ()):

@@ -376,14 +376,17 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
     their arrival times (``arrival_times_i64(plan.gaps)``), and appends
     ``(arr, wq, soj) (B,R) i64, rstat (B,R) i32``.
 
-    ``diag``, an optional ``(B, 2)`` int32 tensor, is filled by the
+    ``diag``, an optional ``(B, 4)`` int32 tensor, is filled by the
     kernel's rule: column 0 the events the loop ran — ``i + 1`` for the
     first event ``i`` at which an open-loop replica is idle for good
     (every thread idle, nothing admitted pending, the arrival stream
-    drained; every later event is a no-op), else ``n_events`` — and
-    column 1 1 where an open-loop replica's arrival times are
-    non-decreasing. This engine runs every event either way; the count
-    costs a few ops an event and is made only when ``diag`` is given.
+    drained; every later event is a no-op), else ``n_events`` — column 1
+    1 where an open-loop replica's arrival times are non-decreasing,
+    column 2 the lock operations begun (the NCS steps taken) and column 3
+    those begun shared (alock-rw's readers, the steps into RD_TRY; 0 for
+    every other algorithm). This engine runs every event either way; the
+    counts cost a few ops an event and are made only when ``diag`` is
+    given.
     """
     R = wl.arr_fix.shape[-1]
     if R > 0 and (plan is None or arr is None):
@@ -434,6 +437,7 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
         return a[:, 0] if ph is None else a[rows, ph]
 
     ev_run = torch.full((B,), n_events, dtype=i32, device=dev)
+    n_ops, n_reads = zeros(B), zeros(B)
     for i in range(n_events):
         # -- phase resolve + the boundary rejoin bump -----------------------
         if P > 1:
@@ -568,6 +572,11 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
         _put(opst, tid, new_ready, is_ncs & ok)
         reacq = reacq + (is_sb & (new_pc == mc.SET_VICTIM_R) & ok).to(i32)
         npass = npass + (is_ps & ok).to(i32)
+        if diag is not None:
+            began = is_ncs & ok
+            n_ops = n_ops + began.to(i32)
+            if is_rw:
+                n_reads = n_reads + (began & new_r).to(i32)
         if R:
             # -- departure: the finishing release frees the thread and
             # stamps the request's sojourn at the step's completion time
@@ -582,5 +591,7 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
         diag[:, 0] = ev_run
         diag[:, 1] = ((arr[:, 1:] >= arr[:, :-1]).all(1).to(i32) if R
                       else 0)
+        diag[:, 2] = n_ops
+        diag[:, 3] = n_reads
     out = (done, lat, latn, ready.max(1).values, reacq, npass)
     return out + (arr, wq, soj, rstat) if R else out

@@ -7,7 +7,9 @@ equal as a float.
 """
 import math
 
+import numpy as np
 import pytest
+import torch
 
 import torch_ref as R
 from repro_torch.core import batch
@@ -122,3 +124,33 @@ def test_legacy_simconfig_rides_the_adapter():
     port = batch.sweep([SimConfig("mcs", 2, 2, 8, 0.9, seed=1)],
                        n_seeds=1, n_events=600, device="cpu")[0]
     _assert_batch_equal(ref, port)
+
+
+def _with_lat(mod, lat, *stats):
+    z = np.zeros(lat.shape[0], np.int64)
+    return mod.BatchResult(None, 1, z, z, z, z.astype(np.float64), lat,
+                           np.zeros((lat.shape[0], 2), np.int32), z, z,
+                           *stats)
+
+
+@pytest.mark.parametrize("case", ["ring", "sparse", "below_2_53",
+                                  "above_2_53", "empty"])
+def test_mean_latency_equals_the_reference_pool_mean(case):
+    """``mean_lat_us`` reads the ring's sum and count from ``lat_stats``
+    where every partial sum stays below 2**53 and takes the pool's mean
+    otherwise: either way the reference's float, ``==``."""
+    g = np.random.default_rng(7)
+    lat = g.integers(0, 5_000_000, size=(4, 1000), dtype=np.int64)
+    if case == "sparse":
+        lat[g.random(lat.shape) < 0.9] = -1
+    elif case in ("below_2_53", "above_2_53"):
+        # the largest sample times the pool's size just below or above
+        top = 2**53 // lat.size + (0 if case == "below_2_53" else 1)
+        lat = g.integers(top // 2, top, size=lat.shape, dtype=np.int64)
+        lat[0, 0] = top - (1 if case == "below_2_53" else 0)
+    elif case == "empty":
+        lat[:] = -1
+    stats = batch._lat_stats(torch.from_numpy(lat)).numpy()
+    want = _with_lat(R.ref_batch, lat).mean_lat_us
+    got = _with_lat(batch, lat, stats).mean_lat_us
+    assert _same_float(want, got), (want, got)

@@ -129,10 +129,14 @@ def test_closed_buckets_run_what_they_draw_and_make_no_plan():
     batch.reset_exec_stats()
     _experiment(BASE, BASE.replace(alg="spinlock")).run()
     st = batch.exec_stats()
-    assert st["events"] == {"drawn": 2 * SEEDS * EV, "run": 2 * SEEDS * EV}
+    ev = st["events"]
+    assert (ev["drawn"], ev["run"]) == (2 * SEEDS * EV, 2 * SEEDS * EV)
+    # lock operations begun, none of them shared (no alock-rw here)
+    assert 0 < ev["ops"] < ev["run"] and ev["reads"] == 0
     assert st["seconds"]["plan"] == 0.0 and st["seconds"]["issue"] > 0
     batch.reset_exec_stats()
-    assert batch.exec_stats()["events"] == {"drawn": 0, "run": 0}
+    assert batch.exec_stats()["events"] == {"drawn": 0, "run": 0, "ops": 0,
+                                            "reads": 0}
 
 
 def test_stage_counts_without_a_profiler():
@@ -150,7 +154,7 @@ def _diag_run(w, n_seeds, device, backend, n_events=EV):
     T = w.n_nodes * w.threads_per_node
     tn, ln, _, wl = batch._pack(low.shape_key, [low.operands], n_seeds, 1,
                                 CostModel())
-    diag = torch.full((n_seeds, 2), -7, dtype=torch.int32, device=device)
+    diag = torch.full((n_seeds, 4), -7, dtype=torch.int32, device=device)
     out = run_events(w.alg, T, w.n_nodes, w.n_locks, n_events, wl, tn, ln,
                      backend=backend, device=device, diag=diag)
     return [o.cpu() for o in out], diag.cpu()
@@ -169,7 +173,9 @@ def test_plain_diag_counts_by_the_kernel_rule():
     rstat = got[9]
     assert (rstat != 0).all()
     _, cdiag = _diag_run(BASE, SEEDS, "cpu", "plain")
-    assert cdiag.tolist() == [[EV, 0]] * SEEDS
+    assert cdiag[:, :2].tolist() == [[EV, 0]] * SEEDS
+    # lock operations begun, none of them shared (no alock-rw here)
+    assert (cdiag[:, 2] > 0).all() and (cdiag[:, 3] == 0).all()
 
 
 @pytest.mark.card
