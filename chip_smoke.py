@@ -6,8 +6,9 @@ repository's ``src/`` beside this file; needs no network and no JAX.
 Without a CUDA device it exits non-zero and prints no result — it never
 runs on the CPU.
 
-It builds the six kernel libraries from ``src/repro_torch/csrc`` (one ``nvcc``
-per source, all started together), then prints one JSON object per phase:
+It builds the seven kernel libraries from ``src/repro_torch/csrc`` (one
+``nvcc`` per source, all started together), then prints one JSON object per
+phase:
 
   device      card name and power limit (``nvidia-smi``), torch/CUDA versions,
               and that TF32 is off for the plain versions' f32 matmuls
@@ -25,8 +26,12 @@ per source, all started together), then prints one JSON object per phase:
               plain route's
   traffic_plan  the open loop's arrival plan (gaps, token-admit mask, its
               prefix count, queue bounds, arrival times) made on the card
-              equals the one made on the CPU: seeds {0, 1, 7, 2**31-1} x the
-              ramp rates, a token policy and burst-storm's phased rates
+              equals the one made on the CPU, and the arrival-plan kernel
+              (``csrc/arrival_plan.cu``, one launch a case) equals both:
+              seeds {0, 1, 7, 2**31-1} x the ramp rates, a token policy and
+              burst-storm's phased rates; then at ``open-ramp``'s alock
+              bucket (B = 192, R = 256) the kernel's time against
+              ``plan_bound`` and the plain route's
   kernel_check  the CUDA kernel equals its plain PyTorch version on the card
               (``torch.equal`` on all six outputs; tolerance zero) for every
               algorithm, single-phase and phased (churn + fail-slow
@@ -75,14 +80,16 @@ per source, all started together), then prints one JSON object per phase:
               150,000 events each) through ``Experiment.run()`` with the
               default device and backend (every bucket issued before any
               is forced); launch counters are set to 0 just before and read
-              just after (one K1 and one draw-kernel launch a bucket);
+              just after (one K1 and one draw-kernel launch a bucket, no
+              arrival-plan launch);
               then the same grid one bucket at a time
               (``batch.IN_FLIGHT_SHARE = 0``), every replica's outputs
               compared by digest
   main_path_open  ``run_scenario("open-loop-ramp")`` and ``("burst-storm")``
               at 32 seeds x 150,000 events with the default device and
               backend, counters set to 0 just before each and read just
-              after: launches, seconds by stage, events/s, knee rows
+              after: launches (one K1, draw-kernel and arrival-plan launch
+              a bucket), seconds by stage, events/s, knee rows
   sharded     the Fig. 5 grid again through the sharded layouts:
               ``Experiment.run()`` with ``ExecOptions(devices=1, chunk=32)``
               and ``chunk=40`` (a trimmed trailing superchunk in every
@@ -261,6 +268,16 @@ DRAW_EVENTS = 2047
 DRAW_GRID = dict(rw=(False, True), P=(1, 3), N=(1, 2, 20), kpn=(1, 50, 200))
 #: launches the draw kernel is timed over at the widest Fig. 5 bucket
 DRAW_REPS = 10
+#: the arrival plan's f32 operations a request besides its two hashes
+#: (fold_in, then the uniform's bits): XLA's log1p, both branches (~32 for
+#: the log, ~22 for the rational one), the scaling, rounding and the add
+#: (4), the phase resolve and the token step (~8)
+PLAN_F32_OPS = 66
+#: dependent operations of one step of the token bucket's credit chain:
+#: the refill FMA, the min with the burst, the compare, the debit's select
+PLAN_STEP_OPS = 4
+#: launches the arrival-plan kernel is timed over at the open-ramp bucket
+PLAN_REPS = 50
 #: the benchmark's reader-writer lock table under YCSB A, B and C: its
 #: widest bucket, the job seed its workloads take, and the event count at
 #: which the kernels are held against the plain route
@@ -279,7 +296,7 @@ BF16_OPS_PER_S = 989e12        # bf16 products on the tensor cores
 TF32X3_OPS_PER_S = 495e12 / 3
 #: the libraries built beside the event loop's (one nvcc each, all at once)
 LIBRARIES = ("flash_attention", "flash_attention_bwd", "ssd_scan",
-             "alock_tick", "draw_stream")
+             "alock_tick", "draw_stream", "arrival_plan")
 #: scalar 32/64-bit operations of one event step besides the argmin,
 #: counted from the kernel source: phase resolve and draw hand-off ~14,
 #: the longest switch arm ~20, cost application ~20, accounting ~10
@@ -424,6 +441,25 @@ def draw_bound(B, n_events, kz, rw):
                  + (3 if rw else 2) * UNIFORM_OPS + RANDINT_OPS + kz)
     return bound_row(4 * (4 if rw else 3) * B * n_events,
                      B * n_events * per_event, INT32_OPS_PER_S)
+
+
+def plan_bound(B, R):
+    """The arrival plan of ``B`` replicas x ``R`` requests as a
+    kernels-phase row, with its latency term. ``operations``: two
+    threefry2x32 hashes and ``PLAN_F32_OPS`` a request over the INT32 rate.
+    ``bytes``: ``arr_fix`` read and the four ``(B, R)`` outputs written
+    once. ``latency``: one replica's credit chain, ``R`` steps of
+    ``PLAN_STEP_OPS`` dependent operations at ``INT_OP_CYCLES`` each (every
+    replica's block is resident at once up to 8 blocks an SM)."""
+    row = bound_row(4 * 5 * B * R, B * R * (2 * THREEFRY_OPS + PLAN_F32_OPS),
+                    INT32_OPS_PER_S)
+    lat_ms = (R * PLAN_STEP_OPS * INT_OP_CYCLES / SM_CLOCK_HZ * 1e3
+              * math.ceil(B / (8 * N_SM)))
+    terms = {"bytes": row["bound_bytes_ms"],
+             "operations": row["bound_operations_ms"], "latency": lat_ms}
+    return {**row, "bound_latency_ms": lat_ms,
+            "bound_with_latency_ms": max(terms.values()),
+            "binds": max(terms, key=terms.get)}
 
 
 def visible_pairs(S, causal, window):
@@ -1586,6 +1622,90 @@ def draw_stream_phase(torch, dev, wide):
                          "version disagree")
 
 
+def traffic_plan_phase(torch, dev, cases, ramp):
+    """The open loop's arrival plan, every field and the arrival times:
+    for each ``name -> operands`` (numpy leaves) of ``cases`` the plain
+    route on the CPU against the plain route on the card (``differing``)
+    and the kernel (``precompute_plan(backend="kernel")``, one launch)
+    against both; then at ``ramp`` (``open-ramp``'s bucket, on the card)
+    the kernel against the plain route, its time over ``PLAN_REPS``
+    launches enqueued while the card sleeps (device time, not the
+    host's enqueue), the host's enqueue per call, and the plain route's
+    time, beside ``plan_bound``."""
+    from repro_torch.kernels.event_loop import arrivals
+    from repro_torch.kernels.event_loop.ops import precompute_plan
+    from repro_torch.traffic.stream import arrival_times_i64
+    from repro_torch.workloads import to_device
+    fields = ("gaps", "tok", "tokcum", "qcap", "arr")
+
+    def differing(a, b):
+        pairs = list(zip(a, b)) + [(arrival_times_i64(a.gaps),
+                                    arrival_times_i64(b.gaps))]
+        return dict(zip(fields, (int((x.cpu() != y.cpu()).sum())
+                                 for x, y in pairs)))
+
+    def kernel(wl):
+        before = arrivals.launches()
+        got = precompute_plan(wl, N_EVENTS, device=dev, backend="kernel")
+        return got, arrivals.launches() - before
+
+    rows = []
+    for name, st in cases.items():
+        wl = to_device(st, dev)
+        p_cpu = precompute_plan(st, N_EVENTS, device="cpu")
+        p_plain = precompute_plan(wl, N_EVENTS, device=dev, backend="plain")
+        p_kern, launched = kernel(wl)
+        rows.append({"case": name, "replicas": int(wl.seed.shape[0]),
+                     "R": int(wl.arr_fix.shape[-1]),
+                     "differing": differing(p_cpu, p_plain),
+                     "kernel_differing": differing(p_plain, p_kern),
+                     "kernel_cpu_differing": differing(p_cpu, p_kern),
+                     "plan_launches": launched,
+                     "admitted": int(p_kern.tok.sum())})
+    B, R = int(ramp.seed.shape[0]), int(ramp.arr_fix.shape[-1])
+    p_kern, launched = kernel(ramp)
+    p_plain = precompute_plan(ramp, N_EVENTS, device=dev, backend="plain")
+    rows.append({"case": "open-ramp bucket", "replicas": B, "R": R,
+                 "kernel_differing": differing(p_plain, p_kern),
+                 "plan_launches": launched,
+                 "admitted": int(p_kern.tok.sum())})
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(0.05 * SM_CLOCK_HZ))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(PLAN_REPS):
+        precompute_plan(ramp, N_EVENTS, device=dev, backend="kernel")
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) / PLAN_REPS * 1e3
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / PLAN_REPS
+    start.record()
+    precompute_plan(ramp, N_EVENTS, device=dev, backend="plain")
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    bound = plan_bound(B, R)
+    ok = all(sum(r.get("differing", {}).values()) == 0
+             and sum(r["kernel_differing"].values()) == 0
+             and sum(r.get("kernel_cpu_differing", {}).values()) == 0
+             and r["plan_launches"] == 1 for r in rows)
+    emit({"phase": "traffic_plan", "equal": ok, "cases": rows,
+          "ms": ms, "reps": PLAN_REPS, "enqueue_ms": enqueue_ms,
+          "plain_ms": plain_ms, "bound": bound,
+          "x_bound": ms / bound["bound_with_latency_ms"],
+          "plain_over_kernel": plain_ms / ms})
+    if not ok:
+        raise SystemExit("traffic_plan: the arrival plan differs between "
+                         "the kernel, the plain route on the card and the "
+                         "CPU")
+    return {"name": "arrival_plan", "route": "cuda",
+            "source": "src/repro_torch/csrc/arrival_plan.cu",
+            "replaces": "src/repro/traffic/stream.py (XLA, no TPU kernel)",
+            "tolerance": 0, "shape": {"B": B, "R": R}, "ms": ms,
+            "plain_ms": plain_ms, **bound, "library_ms": None}
+
+
 def rw_ycsb_phase(torch, dev):
     """``ycsb-rw-1000``'s widest bucket (its 20-node workloads, YCSB A, B
     and C, x ``n_seeds``), lowered and packed as ``sweep`` does: at
@@ -1773,7 +1893,7 @@ def main():
     from repro_torch.kernels.event_loop.ops import (precompute_draws,
                                                     precompute_plan,
                                                     run_events)
-    from repro_torch.traffic.stream import arrival_plan, arrival_times_i64
+    from repro_torch.traffic.stream import arrival_times_i64
     from repro_torch.workloads import (Arrivals, Phase, Workload,
                                        WorkloadOperands, lower, pad_phases,
                                        racks_of, to_device)
@@ -1877,7 +1997,7 @@ def main():
     BURST_TOKEN = next(w for w in BURST_WS if w.alg == "alock"
                        and w.arrivals.token_rate_per_us > 0.0)
 
-    # -- traffic_plan: the arrival plan made on the card equals the CPU's --
+    # -- traffic_plan: the arrival plan, kernel, card and CPU alike --------
     plan_cases = {
         "ramp_rates": RAMP_ALOCK,
         "token": [RAMP8.replace(arrivals=Arrivals(
@@ -1885,27 +2005,10 @@ def main():
             token_rate_per_us=2.0, token_burst=16.0))],
         "burst_storm_phased": [w for w in BURST_WS if w.alg == "alock"],
     }
-    plan_rows = []
-    for name, ws in plan_cases.items():
-        st = stacked([w.replace(seed=s) for s in PLAN_SEEDS for w in ws],
-                     N_EVENTS)
-        p_cpu = arrival_plan(to_device(st, "cpu"), N_EVENTS)
-        p_gpu = arrival_plan(to_device(st, dev), N_EVENTS)
-        arrs = (list(zip(p_cpu, p_gpu))
-                + [(arrival_times_i64(p_cpu.gaps),
-                    arrival_times_i64(p_gpu.gaps))])
-        differ = [int((a != b.cpu()).sum()) for a, b in arrs]
-        plan_rows.append({"case": name, "replicas": int(st.seed.shape[0]),
-                          "R": int(st.arr_fix.shape[-1]),
-                          "differing": dict(zip(
-                              ("gaps", "tok", "tokcum", "qcap", "arr"),
-                              differ)),
-                          "admitted": int(p_gpu.tok.sum())})
-    plan_equal = all(sum(r["differing"].values()) == 0 for r in plan_rows)
-    emit({"phase": "traffic_plan", "equal": plan_equal, "cases": plan_rows})
-    if not plan_equal:
-        raise SystemExit("traffic_plan: the arrival plan differs between "
-                         "cpu and cuda")
+    plan_record = traffic_plan_phase(torch, dev, {
+        name: stacked([w.replace(seed=s) for s in PLAN_SEEDS for w in ws],
+                      N_EVENTS) for name, ws in plan_cases.items()},
+        batched(RAMP_ALOCK, N_EVENTS, N_SEEDS))
 
     # -- kernel_check: CUDA kernel vs its plain version, on the card --------
     def direct(alg, T, N, K, n_events, wl, streams, plan, warps=None):
@@ -2354,6 +2457,9 @@ def main():
     if stats["draw_launches"] != launches:
         problems.append(f"draw-kernel launches {stats['draw_launches']} != "
                         f"shards {launches}")
+    if stats["plan_launches"] != 0:
+        problems.append(f"arrival-plan launches {stats['plan_launches']} "
+                        f"in a closed grid")
     if stats["dispatches"] != n_buckets:
         problems.append(f"dispatches {stats['dispatches']} != {n_buckets}")
     if len(res) != len(exp):
@@ -2414,6 +2520,7 @@ def main():
           "n_events": N_EVENTS, "replicas": len(distinct) * N_SEEDS,
           "buckets": n_buckets, "kernel_launches": launches,
           "draw_launches": stats["draw_launches"],
+          "plan_launches": stats["plan_launches"],
           "dispatches": stats["dispatches"], "wall_seconds": wall,
           "seconds": stats["seconds"],
           "simulated_events_per_second": sim_events / wall,
@@ -2464,6 +2571,10 @@ def main():
         if stats["dispatches"] != n_buckets:
             problems.append(f"dispatches {stats['dispatches']} != "
                             f"{n_buckets}")
+        if stats["plan_launches"] != n_buckets:
+            problems.append(f"arrival-plan launches "
+                            f"{stats['plan_launches']} != shards "
+                            f"{n_buckets}")
         serving = [r for r in rows if r["name"].endswith(".serving")]
         if len(serving) != len(distinct):
             problems.append(f"{len(serving)} serving rows for "
@@ -2487,6 +2598,7 @@ def main():
               "distinct_workloads": len(distinct), "seeds": N_SEEDS,
               "n_events": N_EVENTS, "replicas": len(distinct) * N_SEEDS,
               "buckets": n_buckets, "kernel_launches": launches_o,
+              "plan_launches": stats["plan_launches"],
               "dispatches": stats["dispatches"], "wall_seconds": wall,
               "seconds": stats["seconds"],
               "simulated_events_per_second": sim_events / wall,
@@ -2536,7 +2648,7 @@ def main():
         "plain_ms": plain_ms_ocut, "plain_n_events": OPEN_EV_CHECK,
         "ms_at_plain_n_events": ms_ocut, **k1_row(bound_open),
         "smem_plan": open_plan, "library_ms": None,
-    }, tick_record] + float_records})
+    }, plan_record, tick_record] + float_records})
     print(smi, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

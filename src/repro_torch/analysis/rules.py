@@ -29,7 +29,8 @@ rule keeps its id):
   x64-         X001     a 64-bit array in the hi/lo pairs contract
   cleanliness
   kernel-      K001     a compiler flag that changes f32 results; a cost
-  build                 scaling ``nvcc`` may contract into an FMA
+  build                 scaling or arrival gap ``nvcc`` may contract into
+                        an FMA
   docs         D001     a dotted ``repro_torch`` name in the docs that does
                         not resolve
   ============ ======== ====================================================
@@ -415,10 +416,10 @@ def _bucket_sigs(_eps):
 
 def kernel_builds() -> list:
     """``(stem, source, flags, load)`` of every kernel library the port
-    builds: the six ``csrc/*.cu`` and their wrappers' loaders."""
+    builds: the seven ``csrc/*.cu`` and their wrappers' loaders."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.alock_tick import kernel as k2
-    from repro_torch.kernels.event_loop import draws
+    from repro_torch.kernels.event_loop import arrivals, draws
     from repro_torch.kernels.event_loop import kernel as k1
     from repro_torch.kernels.flash_attention import kernel as k3
     from repro_torch.kernels.flash_attention import kernel_bwd as k45
@@ -432,7 +433,9 @@ def kernel_builds() -> list:
              k45.NVCC_FLAGS, k45.load),
             ("ssd_scan", _build.CSRC / "ssd_scan.cu", k6.NVCC_FLAGS,
              k6.load),
-            ("draw_stream", draws.SOURCE, draws.NVCC_FLAGS, draws.load)]
+            ("draw_stream", draws.SOURCE, draws.NVCC_FLAGS, draws.load),
+            ("arrival_plan", arrivals.SOURCE, arrivals.NVCC_FLAGS,
+             arrivals.load)]
 
 
 def check_build_key(key_fn=None, device=None) -> list[Finding]:
@@ -582,17 +585,18 @@ _RINTF = re.compile(r"\brintf\s*\(")
 def check_kernel_build(flag_sets=None, sources=None) -> list[Finding]:
     """K001 core: no library's flags (``flag_sets``: name -> flags,
     default every ``kernel_builds()`` entry and ``_build.FLAGS``) carry a
-    fast-math option, and every ``rintf(`` of ``csrc/event_loop.cu``
-    (``sources``: name -> text) rounds a ``__fmul_rn(`` product — nvcc
-    contracts ``a * b`` into an FMA by default, and the cost scaling must
-    round the product, as the reference's f32 multiply does."""
+    fast-math option, and every ``rintf(`` of ``csrc/event_loop.cu`` and
+    ``csrc/arrival_plan.cu`` (``sources``: name -> text) rounds a
+    ``__fmul_rn(`` product — nvcc contracts ``a * b`` into an FMA by
+    default, and the cost scaling and the arrival gaps must round the
+    product, as the reference's f32 multiply does."""
     from repro_torch.kernels import _build
     if flag_sets is None:
         flag_sets = {"_build.FLAGS": _build.FLAGS}
         flag_sets.update({stem: fl for stem, _, fl, _ in kernel_builds()})
     if sources is None:
-        src = _build.CSRC / "event_loop.cu"
-        sources = {"csrc/event_loop.cu": src.read_text()}
+        sources = {f"csrc/{name}": (_build.CSRC / name).read_text()
+                   for name in ("event_loop.cu", "arrival_plan.cu")}
     findings = []
     for name, flags in flag_sets.items():
         for fl in flags:

@@ -71,6 +71,7 @@ from repro_torch.core.cost_model import CostModel, N_COST_ROWS
 from repro_torch.core.sim import (LAT_SAMPLES, SimConfig, SimResult,
                                   topology)
 from repro_torch.device import resolve_backend, resolve_device
+from repro_torch.kernels.event_loop import arrivals as _arrivals
 from repro_torch.kernels.event_loop import draws as _draws
 from repro_torch.kernels.event_loop import kernel as _kernel
 from repro_torch.kernels.event_loop import smem_plan as _smem_plan
@@ -95,9 +96,11 @@ IN_FLIGHT_SHARE = 0.5
 # "launches" is the event-loop kernel's own launch counter
 # (kernels/event_loop/kernel.py), one per shard, read here so a run can show
 # that its buckets went through the kernel; "draw_launches" the draw-stream
-# kernel's (kernels/event_loop/draws.py), one per shard drawn by it. The
-# reference's "compiles" has no counterpart: the kernel library is built
-# once per source hash.
+# kernel's (kernels/event_loop/draws.py), one per shard drawn by it;
+# "plan_launches" the arrival-plan kernel's (kernels/event_loop/
+# arrivals.py), one per open-loop shard planned by it (0 in closed sweeps).
+# The reference's "compiles" has no counterpart: the kernel library is
+# built once per source hash.
 # "seconds" by stage. Host-clock sums of the host's own stages, disjoint:
 # "lower" (lowering and bucketing the workloads, packing each bucket),
 # "issue" (enqueueing each shard: operand upload, draw stream, arrival
@@ -152,14 +155,16 @@ def stage(name: str, counter: str | None = None):
 
 
 def exec_stats() -> dict:
-    """Snapshot of {dispatches, launches, draw_launches, seconds, events,
-    smem_plan} since the last reset. ``seconds``: lower, issue, plan, wait,
-    draws, engine, engine_only, aggregate, results, wall (see the comment
-    above ``_SECONDS``); ``events``: {drawn, run, ops, reads}."""
+    """Snapshot of {dispatches, launches, draw_launches, plan_launches,
+    seconds, events, smem_plan} since the last reset. ``seconds``: lower,
+    issue, plan, wait, draws, engine, engine_only, aggregate, results, wall
+    (see the comment above ``_SECONDS``); ``events``: {drawn, run, ops,
+    reads}."""
     plan = _smem_plan.last_plan()
     return {"dispatches": _STATS["dispatches"],
             "launches": _kernel.launches(),
-            "draw_launches": _draws.launches(), "seconds": dict(_SECONDS),
+            "draw_launches": _draws.launches(),
+            "plan_launches": _arrivals.launches(), "seconds": dict(_SECONDS),
             "events": dict(_EVENTS),
             "smem_plan": None if plan is None else plan.as_dict()}
 
@@ -172,6 +177,7 @@ def reset_exec_stats() -> None:
         _EVENTS[k] = 0
     _kernel.reset_launches()
     _draws.reset_launches()
+    _arrivals.reset_launches()
     _smem_plan.clear_plan()
 
 
@@ -472,7 +478,8 @@ def _issue_shard(key, thread_node, lock_node, wl: WorkloadOperands,
         plan = None
         if R:
             with stage("sweep.plan", "plan"):
-                plan = precompute_plan(wd, n_events, device=dev)
+                plan = precompute_plan(wd, n_events, device=dev,
+                                       backend=backend)
         d1 = _mark(dev)
         with stage("sweep.launch"):
             diag = torch.zeros((wd.seed.shape[0], 4), dtype=torch.int32,

@@ -21,8 +21,10 @@ on simulation state. The thread-dependent half (comparing the uniform
 against ``locality[phase, tid]``) runs inside the loop, because ``tid`` is
 the argmin of the ready clocks and only exists at run time. The open
 loop's arrival plan (``precompute_plan``: gaps, token-admit mask, its
-prefix count, queue bounds) is state-independent too and is computed the
-same way, before the loop.
+prefix count, queue bounds) is state-independent too and is made the same
+way, before the loop: one launch of the CUDA kernel ``arrivals.py`` /
+``csrc/arrival_plan.cu`` on the kernel backend, ``traffic/stream.py`` in
+torch ops on the plain one.
 
 >>> from repro_torch.workloads import Workload, lower, to_device
 >>> from repro_torch.kernels.event_loop.ops import precompute_draws
@@ -41,6 +43,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.device import resolve_backend, resolve_device
+from repro_torch.kernels.event_loop import arrivals as _arrivals
 from repro_torch.kernels.event_loop import draws as _draws
 from repro_torch.kernels.event_loop import i32pair
 from repro_torch.kernels.event_loop import kernel as _kernel
@@ -138,13 +141,27 @@ def _as_tensor(a, dev, dtype=None) -> torch.Tensor:
     return a.to(device=dev, dtype=dtype).contiguous()
 
 
-def precompute_plan(wl, n_events: int, device="cuda") -> ArrivalPlan:
+def precompute_plan(wl, n_events: int, device="cuda",
+                    backend: str = "auto") -> ArrivalPlan:
     """The state-independent request plan of an open-loop ``wl`` (leaves
-    with a leading replica axis B, ``R > 0``): ``traffic.stream.
-    arrival_plan`` on ``device``, the counterpart of ``precompute_draws``
-    for the arrival stream."""
+    with a leading replica axis B, ``R > 0``), on ``device``: the
+    counterpart of ``precompute_draws`` for the arrival stream.
+
+    ``backend="kernel"`` makes the whole plan in one launch of the CUDA
+    kernel ``arrivals.arrival_plan`` (``csrc/arrival_plan.cu``) and needs a
+    CUDA device; ``"plain"`` runs ``traffic.stream.arrival_plan`` on
+    whatever device was asked for; ``"auto"`` is the kernel on a CUDA
+    device and the plain version on an explicitly requested CPU. The two
+    give the same bits.
+    """
     dev = resolve_device(device)
-    return arrival_plan(to_device(WorkloadOperands(*wl), dev), n_events)
+    backend = resolve_backend(backend, dev)
+    wl = to_device(WorkloadOperands(*wl), dev)
+    if backend == "kernel":
+        return _arrivals.arrival_plan(wl.seed, wl.arr_fix, wl.arr_edges,
+                                      wl.arr_gap_ns, wl.arr_token,
+                                      wl.arr_qcap, n_events)
+    return arrival_plan(wl, n_events)
 
 
 def run_events(alg, T, N, K, n_events, wl, thread_node, lock_node, *,
@@ -192,7 +209,8 @@ def run_events(alg, T, N, K, n_events, wl, thread_node, lock_node, *,
     lock_node = _as_tensor(lock_node, dev, torch.int32)
     arr = None
     if R:
-        plan = (arrival_plan(wl, n_events) if plan is None else
+        plan = (precompute_plan(wl, n_events, device=dev, backend=backend)
+                if plan is None else
                 ArrivalPlan(*(_as_tensor(a, dev, torch.int32)
                               for a in plan)))
         arr = arrival_times_i64(plan.gaps)
