@@ -6,9 +6,9 @@ repository's ``src/`` beside this file; needs no network and no JAX.
 Without a CUDA device it exits non-zero and prints no result — it never
 runs on the CPU.
 
-It builds the seven kernel libraries from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together), then prints one JSON object per
-phase:
+It builds every kernel library the wrappers declare (``_build.declared()``:
+the seven sources of ``src/repro_torch/csrc``; one ``nvcc`` per source, all
+started together), then prints one JSON object per phase:
 
   device      card name and power limit (``nvidia-smi``), torch/CUDA versions,
               and that TF32 is off for the plain versions' f32 matmuls
@@ -200,6 +200,10 @@ import subprocess
 import sys
 import time
 
+from simbench.peaks import (HBM_BYTES_PER_S, INT32_OPS_PER_S, N_SM,
+                            RANDINT_OPS, SM_CLOCK_HZ, STEP_OPS,
+                            THREEFRY_CALLS, THREEFRY_OPS, UNIFORM_OPS)
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # the paper-scale Fig. 5 grid
@@ -247,20 +251,9 @@ TICK_STEPS_CUT = 2000
 #: range-check it, read its cohort and pc, pick the cohort's tail, decide
 #: the class, the class's read-compare-write, write the pc and the tail back
 TICK_STEP_OPS = 10
-#: integer instructions of one threefry2x32 hash: 2 key adds, 20 rounds of
-#: add, rotate and xor, 5 key injections of two adds each
-THREEFRY_OPS = 72
 #: integer instructions of one remainder by the launch's span through its
 #: magic: multiply-high, subtract, shift, add, shift, multiply-subtract
 MOD_OPS = 6
-#: the draw stream's hashes an event: fold_in 1, split 3 (4 with the read
-#: coin), a uniform from each of subkeys 0 and 2 (and 3), randint's split 2
-#: and its two draws 2 (simbench/peaks.py's THREEFRY_CALLS)
-DRAW_HASHES = {False: 10, True: 12}
-#: a uniform from its bits (shift, or, subtract); randint's combine (two
-#: remainders, multiply, add, remainder, add)
-UNIFORM_OPS = 3
-RANDINT_OPS = 6
 #: the draw kernel's cases against its plain version: seeds, events (not a
 #: multiple of its 1,024-event block), and the grid of rw x P x N x kpn
 DRAW_SEEDS = (0, 1, 7, 2**31 - 1)
@@ -285,8 +278,9 @@ RW_CONFIG = os.path.join(HERE, "simbench", "configs", "ycsb-rw-1000.json")
 RW_SEED = 26
 RW_EV_CUT = 3000
 
-# published peaks of one H100 SXM (dense, full power limit)
-HBM_BYTES_PER_S = 3.35e12
+# published peaks of one H100 SXM (dense, full power limit); HBM's, the
+# integer rate's and the SM clock, with the draws' and the event step's
+# work, are the benchmark's own (simbench/peaks.py)
 ALU32_OPS_PER_S = 67e12        # f32 rate outside the tensor cores (an FMA
                                # counts two): K6's elementwise work
 BF16_OPS_PER_S = 989e12        # bf16 products on the tensor cores
@@ -294,13 +288,6 @@ BF16_OPS_PER_S = 989e12        # bf16 products on the tensor cores
 #: 495e12 each), the least time the card can take for f32 attention work
 #: and K6's products
 TF32X3_OPS_PER_S = 495e12 / 3
-#: the libraries built beside the event loop's (one nvcc each, all at once)
-LIBRARIES = ("flash_attention", "flash_attention_bwd", "ssd_scan",
-             "alock_tick", "draw_stream", "arrival_plan")
-#: scalar 32/64-bit operations of one event step besides the argmin,
-#: counted from the kernel source: phase resolve and draw hand-off ~14,
-#: the longest switch arm ~20, cost application ~20, accounting ~10
-STEP_OPS = 64
 #: scalar operations the open loop needs per event besides the argmin and
 #: the transition. Arrival times are sorted and dispatch is FIFO in slot
 #: order, so the next arrival, the arrival count and the queue head are
@@ -313,14 +300,13 @@ OPEN_EVENT_OPS = 10
 REQ_OPS = 12
 # K1's latency term: the dependent chain of one event, priced with one
 # SM's latencies as scripts/torch_sm_latency.py measured them on an NVIDIA
-# H100 80GB HBM3 at 700.00 W (the lower of two runs; PERF.md, PR 17)
+# H100 80GB HBM3 at 700.00 W (the lower of two runs; PERF.md, PR 17), at
+# simbench/peaks.py's SM_CLOCK_HZ: the card's maximum (nvidia-smi
+# clocks.max.sm, 1980 MHz; 1982-1995 MHz measured under the chain)
 #: cycles from an indexed shared-memory load to its use (x = s[x])
 SMEM_LOAD_CYCLES = 28.645
 #: cycles of one dependent 32-bit integer operation
 INT_OP_CYCLES = 4.716
-#: the SM clock the bound assumes: the card's maximum (nvidia-smi
-#: clocks.max.sm, 1980 MHz; 1982-1995 MHz measured under the chain)
-SM_CLOCK_HZ = 1.98e9
 #: the minimal chain of one event: the argmin reads the ready clocks (a
 #: load) and takes their minimum (at least one operation), the selected
 #: thread's state is read (a load), then the lock or peer word it names (a
@@ -333,16 +319,10 @@ EVENT_CHAIN_CYCLES = 3 * SMEM_LOAD_CYCLES + 2 * INT_OP_CYCLES
 #: at SPIN_BUDGET) and selects the new value from the test (two
 #: operations); the next thread's record can be loaded ahead
 TICK_CHAIN_CYCLES = 2 * INT_OP_CYCLES
-#: what the card holds at once: 132 SMs of 228 KB shared memory and 64
-#: resident warps each (one warp per replica)
-N_SM = 132
+#: what the card holds at once: N_SM (132) SMs of 228 KB shared memory and
+#: 64 resident warps each (one warp per replica)
 SM_SMEM_BYTES = 228 * 1024
 SM_WARPS = 64
-#: integer instructions a second: 64 INT32 lanes on each of the 132 SMs
-#: (16 in each of its four partitions; NVIDIA H100 Tensor Core GPU
-#: Architecture white paper) at SM_CLOCK_HZ. No integer instruction counts
-#: twice, as an FMA does in ALU32_OPS_PER_S. K1's and K2's operations.
-INT32_OPS_PER_S = N_SM * 64 * SM_CLOCK_HZ
 
 
 def emit(obj):
@@ -433,11 +413,11 @@ def bound_row(nbytes, nops, ops_per_s):
 
 def draw_bound(B, n_events, kz, rw):
     """The draw stream of ``B`` replicas x ``n_events`` as a kernels-phase
-    row. ``operations``: DRAW_HASHES threefry2x32 hashes of THREEFRY_OPS
+    row. ``operations``: THREEFRY_CALLS threefry2x32 hashes of THREEFRY_OPS
     each, the uniforms' and randint's conversions and one compare a zcdf
     entry, per event, over the INT32 rate. ``bytes``: the outputs written
     once (the operands are a few hundred bytes a replica)."""
-    per_event = (DRAW_HASHES[rw] * THREEFRY_OPS
+    per_event = (THREEFRY_CALLS[rw] * THREEFRY_OPS
                  + (3 if rw else 2) * UNIFORM_OPS + RANDINT_OPS + kz)
     return bound_row(4 * (4 if rw else 3) * B * n_events,
                      B * n_events * per_event, INT32_OPS_PER_S)
@@ -604,7 +584,7 @@ def ssd_at_tile(torch, sk, _build, ops, hb):
     y = torch.empty_like(xd)
     st = torch.empty((B, nc, H, P, N), device=xd.device)
     dec = torch.empty((B, nc, H), device=xd.device)
-    lib = sk.load()
+    lib = sk.LIB.load()
     err = lib.ssd_launch(*(t.data_ptr() for t in (*ops, y, st, dec)),
                          B, nc, L, H, P, N, hb, _build.stream_of(xd))
     _build.check_launch(lib, err, f"SSD intra-chunk kernel at hb={hb}")
@@ -702,18 +682,17 @@ TC_FUNCTIONS = {"flash_attention": {"flash_fwd_kernel": "K3"},
 TC_INSTANCES = 20
 
 
-def tensor_core_report(mods, _build):
+def tensor_core_report(_build):
     """The instantiations of K3, K4, K5 (kernel x dtype x padded hd) and
-    K6 (FULL or not, f32), ``mods`` the wrapper module of each library in
-    ``TC_FUNCTIONS``: route, registers and spill bytes (the ptxas report of
+    K6 (FULL or not, f32) in the libraries of ``TC_FUNCTIONS``: route,
+    registers and spill bytes (the ptxas report of
     each library's build) and their tensor-core instructions in its SASS.
     ``ok`` when all ``TC_INSTANCES`` are there, none spills and, where
     ``cuobjdump`` exists, each has its route's instructions (HGMMA for
     bf16, HMMA for f32)."""
     rows, logs, sass_found = [], True, True
     for stem, names in TC_FUNCTIONS.items():
-        lib = _build.build(_build.CSRC / f"{stem}.cu", stem,
-                           mods[stem].NVCC_FLAGS)
+        lib = _build.LIBRARIES[stem].build()
         log = _build.BUILD_LOG.get(stem)
         logs = logs and bool(log)
         regs = ptxas_report(log) if log else {}
@@ -856,9 +835,7 @@ def float_kernel_phases(torch, dev):
     if not att_ok:
         raise SystemExit("kernel_check_attention: a CUDA kernel and its "
                          "plain version disagree")
-    tc = tensor_core_report({"flash_attention": fk,
-                             "flash_attention_bwd": fkb, "ssd_scan": sk},
-                            _build)
+    tc = tensor_core_report(_build)
     emit({"phase": "tensor_cores", **tc})
     if not tc["ok"]:
         raise SystemExit("tensor_cores: a K3/K4/K5/K6 instantiation is "
@@ -1006,17 +983,18 @@ def float_kernel_phases(torch, dev):
     xs = ssd_inputs(torch, dev, *(SSD_PATH[x] for x in "BSHPN"), 401)
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     torch.cuda.synchronize()
-    fk.reset_launches()                      # every launch count to 0
-    fkb.reset_launches()
-    sk.reset_launches()
+    for mod in (fk, fkb, sk):                # every launch count to 0
+        mod.LIB.reset_launches()
     t0 = time.perf_counter()
     o = mha_vjp(qg, kg, vg, causal=True)
     o.backward(do)
     y, h = ssd_forward(*xs, chunk=SSD_PATH["L"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    path_launches = {"K3": fk.launches(), "K4": fkb.launches()["dq"],
-                     "K5": fkb.launches()["dkv"], "K6": sk.launches()}
+    path_launches = {"K3": fk.LIB.launches(),
+                     "K4": fkb.LIB.launches()["dq"],
+                     "K5": fkb.LIB.launches()["dkv"],
+                     "K6": sk.LIB.launches()}
     # the same inputs through the plain versions
     qp, kp, vp = (t.clone().requires_grad_() for t in (q, k, v))
     op = mha_vjp(qp, kp, vp, causal=True, backend="plain")
@@ -1501,11 +1479,11 @@ def pairs_phase(torch, cases):
         plan = (precompute_plan(wl, n_events, device=dev)
                 if wl.arr_fix.shape[-1] else None)
         kw = dict(device=dev, streams=streams, plan=plan)
-        el_kernel.reset_launches()           # K1's count to 0
+        el_kernel.LIB.reset_launches()           # K1's count to 0
         got = run_events_pairs(alg, T, N, K, n_events, wl, tn, ln,
                                backend="kernel", **kw)
         torch.cuda.synchronize()
-        launches = el_kernel.launches()      # read just after
+        launches = el_kernel.LIB.launches()      # read just after
         ints = run_events(alg, T, N, K, n_events, wl, tn, ln,
                           backend="kernel", **kw)
         plain = run_events_pairs(alg, T, N, K, n_events, wl, tn, ln,
@@ -1551,10 +1529,10 @@ def draw_stream_phase(torch, dev, wide):
     from repro_torch.kernels.event_loop.ops import precompute_draws
 
     def both(seed, edges, zcdf, n_events, N, kpn, rw):
-        before = draws.launches()
+        before = draws.LIB.launches()
         k = precompute_draws(seed, edges, zcdf, n_events, N, kpn, rw=rw,
                              device=dev, backend="kernel")
-        launched = draws.launches() - before
+        launched = draws.LIB.launches() - before
         p = precompute_draws(seed, edges, zcdf, n_events, N, kpn, rw=rw,
                              device=dev, backend="plain")
         return k, p, launched
@@ -1645,9 +1623,9 @@ def traffic_plan_phase(torch, dev, cases, ramp):
                                  for x, y in pairs)))
 
     def kernel(wl):
-        before = arrivals.launches()
+        before = arrivals.LIB.launches()
         got = precompute_plan(wl, N_EVENTS, device=dev, backend="kernel")
-        return got, arrivals.launches() - before
+        return got, arrivals.LIB.launches() - before
 
     rows = []
     for name, st in cases.items():
@@ -1913,18 +1891,12 @@ def main():
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
           "float32_matmul_precision": torch.get_float32_matmul_precision()})
 
-    # -- build: every library at once, one nvcc per source -------------------
+    # -- build: every declared library at once, one nvcc per source ---------
     t0 = time.perf_counter()
-    from repro_torch.kernels.flash_attention import kernel_bwd
-    from repro_torch.kernels.ssd_scan import kernel as sk
-    flags = {"flash_attention_bwd": kernel_bwd.NVCC_FLAGS,
-             "ssd_scan": sk.NVCC_FLAGS}
-    libs = _build.build_all(
-        [(el_kernel.SOURCE, "event_loop", el_kernel.NVCC_FLAGS)]
-        + [(_build.CSRC / f"{stem}.cu", stem, flags.get(stem, _build.FLAGS))
-           for stem in LIBRARIES])
+    libs = _build.build_all((lib.source, lib.stem, lib.flags)
+                            for lib in _build.declared().values())
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": el_kernel.build_seconds(),
+          "nvcc_seconds": _build.BUILD_SECONDS.get("event_loop"),
           "library": os.path.relpath(str(libs["event_loop"]), HERE),
           "libraries": {stem: {"nvcc_seconds":
                                _build.BUILD_SECONDS.get(stem),

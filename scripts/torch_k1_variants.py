@@ -128,17 +128,18 @@ def main():
     from repro_torch.workloads import (Workload, WorkloadOperands, lower,
                                        to_device)
     dev = torch.device("cuda")
-    committed = K.load
-    specs = [(edited(n, e), f"k1_variant_{n}", K.NVCC_FLAGS)
+    committed = K.LIB.load
+    specs = [(edited(n, e), f"k1_variant_{n}", K.LIB.flags)
              for n, e in VARIANTS.items()]
     specs.append((edited("profile", PROFILE_STAMPS), "k1_variant_profile",
-                  K.NVCC_FLAGS))
+                  K.LIB.flags))
     _build.build_all(specs)
 
     def use(stem):
-        K.load = committed if stem is None else (
-            lambda: _build.load(ROOT / "build" / f"{stem}.cu", stem,
-                                K._setup, K.NVCC_FLAGS))
+        K.LIB.load = committed if stem is None else (
+            lambda: _build.load(
+                ROOT / "build" / f"{stem}.cu", stem,
+                lambda lib: _build.bind(lib, K.LIB.signatures), K.LIB.flags))
 
     def widest(n_events):
         lws = [lower(Workload("alock", 20, 8, 1000, locality=l), n_events)

@@ -26,7 +26,6 @@ committed library's SASS to ``build/k2_sass.txt`` and prints its
 instruction count per kernel. Prints one JSON object per line, the last
 the card's ``nvidia-smi`` name and power limit. Builds go to ``build/``.
 """
-import ctypes
 import json
 import subprocess
 import sys
@@ -142,15 +141,11 @@ def main():
         [(edited(n, VARIANTS.get(n, PROFILE_STAMPS)), f"k2_variant_{n}",
           flags) for n in names])
 
-    def setup(lib):
-        for name, argtypes in K.SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
     libs = {n: _build.load(ROOT / "build" / f"k2_variant_{n}.cu",
-                           f"k2_variant_{n}", setup, flags) for n in names}
-    committed = K.load()
+                           f"k2_variant_{n}",
+                           lambda lib: _build.bind(lib, K.LIB.signatures),
+                           flags) for n in names}
+    committed = K.LIB.load()
 
     Tab, T, steps = PATH["tables"], PATH["T"], PATH["steps"]
     coh = torch.tensor(COHORTS, dtype=torch.int32, device=dev).expand(
@@ -239,7 +234,7 @@ def main():
           "whole_run_per_step": float((prof[:, 6] / n).mean())})
 
     sass = subprocess.run(["cuobjdump", "--dump-sass",
-                           str(_build.build(SRC, "alock_tick"))],
+                           str(K.LIB.build())],
                           capture_output=True, text=True).stdout
     (ROOT / "build" / "k2_sass.txt").write_text(sass)
     counts, fn = {}, None

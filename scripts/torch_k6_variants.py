@@ -181,24 +181,18 @@ def main():
     from repro_torch.kernels import _build
     from repro_torch.kernels.ssd_scan import kernel as K
     dev = torch.device("cuda")
-    flags = K.NVCC_FLAGS + ("-I", str(_build.CSRC))
+    flags = K.LIB.flags + ("-I", str(_build.CSRC))
     names = list(VARIANTS) + ["profile"]
     _build.build_all(
         [(edited(n, VARIANTS.get(n, PROFILE_STAMPS)), f"k6_variant_{n}",
           flags) for n in names])
-    sigs = dict(K.SIGNATURES, ssd_profile=[ctypes.c_void_p, ctypes.c_int])
-
-    def setup(lib, name):
-        for fn_name, argtypes in sigs.items():
-            if fn_name == "ssd_profile" and name != "profile":
-                continue
-            fn = getattr(lib, fn_name)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
+    profile = dict(K.LIB.signatures,
+                   ssd_profile=[ctypes.c_void_p, ctypes.c_int])
     libs = {n: _build.load(ROOT / "build" / f"k6_variant_{n}.cu",
                            f"k6_variant_{n}",
-                           lambda lib, n=n: setup(lib, n), flags)
+                           lambda lib, n=n: _build.bind(
+                               lib, profile if n == "profile"
+                               else K.LIB.signatures), flags)
             for n in names}
     regs = {n: [ln.strip() for ln in _build.BUILD_LOG.get(
         f"k6_variant_{n}", "").splitlines()
@@ -239,7 +233,7 @@ def main():
         return start.elapsed_time(stop) / reps
 
     plan = K.ssd_plan(B, nc, H, L, P, N)
-    committed = K.load()
+    committed = K.LIB.load()
     ref = launch(committed, plan.hb)
     emit({"variant": "committed", "plan": plan.as_dict(),
           "ms": timed(lambda: K.ssd_kernel(*ops))})
@@ -258,7 +252,7 @@ def main():
     emit({"variant": "committed", "plan": plan.as_dict(),
           "ms": timed(lambda: K.ssd_kernel(*ops))})
     sass = subprocess.run(["cuobjdump", "--dump-sass",
-                           str(_build.build(SRC, "ssd_scan", K.NVCC_FLAGS))],
+                           str(K.LIB.build())],
                           capture_output=True, text=True).stdout
     (ROOT / "build" / "k6_sass.txt").write_text(sass)
     emit({"sass_lines": len(sass.splitlines()),

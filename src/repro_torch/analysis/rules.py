@@ -235,7 +235,8 @@ def smem_sizes(ep, device=None) -> dict:
             return (lib.ssd_smem_bytes(*args),)
     else:
         raise ValueError(f"unknown entrypoint kind {kind!r}")
-    return {"python": py, "c": c(mod.load()) if on_card(device) else None}
+    return {"python": py,
+            "c": c(mod.LIB.load()) if on_card(device) else None}
 
 
 def check_smem_consistency(ep, device=None, table_fn=None) -> list[Finding]:
@@ -416,26 +417,10 @@ def _bucket_sigs(_eps):
 
 def kernel_builds() -> list:
     """``(stem, source, flags, load)`` of every kernel library the port
-    builds: the seven ``csrc/*.cu`` and their wrappers' loaders."""
+    builds, as its wrapper declares it (``_build.declared()``)."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.alock_tick import kernel as k2
-    from repro_torch.kernels.event_loop import arrivals, draws
-    from repro_torch.kernels.event_loop import kernel as k1
-    from repro_torch.kernels.flash_attention import kernel as k3
-    from repro_torch.kernels.flash_attention import kernel_bwd as k45
-    from repro_torch.kernels.ssd_scan import kernel as k6
-    return [("event_loop", k1.SOURCE, k1.NVCC_FLAGS, k1.load),
-            ("alock_tick", _build.CSRC / "alock_tick.cu", _build.FLAGS,
-             k2.load),
-            ("flash_attention", _build.CSRC / "flash_attention.cu",
-             k3.NVCC_FLAGS, k3.load),
-            ("flash_attention_bwd", _build.CSRC / "flash_attention_bwd.cu",
-             k45.NVCC_FLAGS, k45.load),
-            ("ssd_scan", _build.CSRC / "ssd_scan.cu", k6.NVCC_FLAGS,
-             k6.load),
-            ("draw_stream", draws.SOURCE, draws.NVCC_FLAGS, draws.load),
-            ("arrival_plan", arrivals.SOURCE, arrivals.NVCC_FLAGS,
-             arrivals.load)]
+    return [(lib.stem, lib.source, lib.flags, lib.load)
+            for lib in _build.declared().values()]
 
 
 def check_build_key(key_fn=None, device=None) -> list[Finding]:

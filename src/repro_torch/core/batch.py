@@ -162,9 +162,10 @@ def exec_stats() -> dict:
     reads}."""
     plan = _smem_plan.last_plan()
     return {"dispatches": _STATS["dispatches"],
-            "launches": _kernel.launches(),
-            "draw_launches": _draws.launches(),
-            "plan_launches": _arrivals.launches(), "seconds": dict(_SECONDS),
+            "launches": _kernel.LIB.launches(),
+            "draw_launches": _draws.LIB.launches(),
+            "plan_launches": _arrivals.LIB.launches(),
+            "seconds": dict(_SECONDS),
             "events": dict(_EVENTS),
             "smem_plan": None if plan is None else plan.as_dict()}
 
@@ -175,9 +176,8 @@ def reset_exec_stats() -> None:
         _SECONDS[k] = 0.0
     for k in _EVENTS:
         _EVENTS[k] = 0
-    _kernel.reset_launches()
-    _draws.reset_launches()
-    _arrivals.reset_launches()
+    for mod in (_kernel, _draws, _arrivals):
+        mod.LIB.reset_launches()
     _smem_plan.clear_plan()
 
 

@@ -952,7 +952,7 @@ int event_loop_block_bytes(int alg, int T, int N, int K, int P, int R,
     return (int)(region_stride(smem_bytes(alg, T, N, K, P, R)) * W);
 }
 
-const char* event_loop_error_string(int code) {
+const char* kernel_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 

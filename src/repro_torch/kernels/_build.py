@@ -2,11 +2,15 @@
 
 Each ``.cu`` source becomes its own shared library with a plain C
 interface, compiled by ``nvcc`` for ``sm_90a`` into ``build/`` at the
-repository root at first use and loaded with ``ctypes``. A library's name
-carries ``build_key``: a hash of its source, the headers beside it, its
-flags and ``nvcc --version``, so an edit or another toolkit rebuilds. A
-failed build raises. Nothing here runs at import time: importing this module
-needs neither ``nvcc`` nor a CUDA device.
+repository root at first use and loaded with ``ctypes``. The wrapper that
+launches a library declares it once, as a ``Library``: its entry points'
+``argtypes``, its flags and its launch counts. ``declared()`` lists every
+declaration, and ``check_operands`` is the launchers' check of dtypes,
+shapes and device. A library's name carries ``build_key``: a hash of its
+source, the headers beside it, its flags and ``nvcc --version``, so an
+edit or another toolkit rebuilds. A failed build raises. Nothing here
+runs at import time: importing this module needs neither ``nvcc`` nor a
+CUDA device.
 
 ``FLAGS`` leave out ``--use_fast_math``: ``expf``/``logf`` stay the
 accurate versions, which the float kernels' tolerances depend on.
@@ -28,6 +32,9 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
+#: ``FLAGS`` and ptxas's report of registers, shared memory and spills per
+#: kernel (``BUILD_LOG``): the float kernels' libraries
+REPORT_FLAGS = FLAGS + ("-Xptxas", "-v")
 #: dynamic shared memory one block may use on Hopper (opt-in above 48 KB;
 #: ``cudaDevAttrMaxSharedMemoryPerBlockOptin``): every kernel's planner
 #: plans against it
@@ -134,17 +141,72 @@ def loaded_path(stem: str) -> Path:
     return Path(_LIBS[stem]._name)
 
 
-def load_library(stem: str, signatures: dict, flags=FLAGS) -> ctypes.CDLL:
-    """``csrc/<stem>.cu`` built with ``flags`` and loaded, with each
-    ``name -> argtypes`` of ``signatures`` set (every entry point returns
-    an int) and the library's ``kernel_error_string``."""
-    def setup(lib):
-        for name, argtypes in signatures.items():
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
-    return load(CSRC / f"{stem}.cu", stem, setup, flags)
+def bind(lib, signatures: dict) -> None:
+    """Set each ``name -> argtypes`` of ``signatures`` on ``lib`` (every
+    entry point returns an int) and its ``kernel_error_string``."""
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+
+
+#: stem -> its declaration, for every wrapper imported so far
+LIBRARIES: dict[str, Library] = {}
+
+
+class Library:
+    """One kernel library, ``csrc/<stem>.cu``, declared by the wrapper that
+    launches it: the ``argtypes`` of its entry points (``signatures``), its
+    nvcc ``flags`` and a launch count for each name of ``counts`` (one
+    count unless the library holds more than one kernel). Declaring it
+    registers it in ``LIBRARIES``; a stem is declared once."""
+
+    def __init__(self, stem: str, signatures: dict, flags=FLAGS, *,
+                 counts=("launches",)):
+        if stem in LIBRARIES:
+            raise ValueError(f"the kernel library {stem!r} is declared "
+                             f"twice")
+        self.stem, self.signatures, self.flags = stem, signatures, flags
+        self.source = CSRC / f"{stem}.cu"
+        self._launches = dict.fromkeys(counts, 0)
+        LIBRARIES[stem] = self
+
+    def build(self) -> Path:
+        return build(self.source, self.stem, self.flags)
+
+    def load(self) -> ctypes.CDLL:
+        """The library (built on first use), with its ``argtypes`` set;
+        loaded once per process."""
+        return load(self.source, self.stem,
+                    lambda lib: bind(lib, self.signatures), self.flags)
+
+    def count(self, name: str = "launches") -> None:
+        """Count one launch; nothing but the library's launchers calls
+        it."""
+        self._launches[name] += 1
+
+    def launches(self):
+        """Launches since the last ``reset_launches()``: an int, or name ->
+        int for a library of more than one count."""
+        if len(self._launches) == 1:
+            return next(iter(self._launches.values()))
+        return dict(self._launches)
+
+    def reset_launches(self) -> None:
+        for name in self._launches:
+            self._launches[name] = 0
+
+
+def declared() -> dict[str, Library]:
+    """Every kernel library, stem -> declaration: imports each module of
+    ``repro_torch.kernels``, so that every wrapper has declared its own."""
+    import importlib
+    import pkgutil
+    pkg = importlib.import_module(__package__)
+    for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        importlib.import_module(mod.name)
+    return dict(LIBRARIES)
 
 
 def check_launch(lib, err: int, what: str) -> None:
@@ -176,3 +238,21 @@ def require_cuda(what: str, **tensors) -> None:
     if len(devs) != 1:
         raise ValueError(f"{what}: all operands must lie on one CUDA device, "
                          f"got {sorted(map(str, devs))}")
+
+
+def check_operands(what: str, dtype=None, **operands) -> None:
+    """Raise ``ValueError`` unless every operand has its dtype and shape
+    and all are contiguous tensors on one CUDA device (``require_cuda``).
+    An operand is ``(tensor, dtype, shape)``, or a tensor, which must be of
+    ``dtype`` and may have any shape."""
+    tensors = {}
+    for name, op in operands.items():
+        t, dt, shape = (op, dtype, None) if isinstance(op, torch.Tensor) \
+            else op
+        tensors[name] = t
+        if t.dtype != dt or (shape is not None
+                             and tuple(t.shape) != tuple(shape)):
+            want = dt if shape is None else f"{dt} of shape {tuple(shape)}"
+            raise ValueError(f"{what}: {name} must be {want}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    require_cuda(what, **tensors)

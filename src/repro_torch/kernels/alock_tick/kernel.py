@@ -15,8 +15,8 @@ tables. Built by ``nvcc`` at the first launch (``kernels/_build``);
 importing this module needs neither ``nvcc`` nor a CUDA device.
 
 The launchers take CUDA tensors or raise — no path leads from them to the
-plain version. ``LAUNCHES`` counts their launches (one per call with at
-least one table), and nothing else increments it.
+plain version. ``LIB`` declares the library; it counts their launches (one
+per call with at least one table), and nothing else does.
 """
 from __future__ import annotations
 
@@ -31,8 +31,6 @@ from repro_torch.device import device_of, resolve_backend
 from repro_torch.kernels import _build
 from repro_torch.kernels.alock_tick.ref import alock_tick_plain
 
-#: number of kernel launches since the last ``reset_launches()``
-LAUNCHES = 0
 _LAST_PLAN: dict | None = None
 
 SMEM_LIMIT = _build.SMEM_LIMIT
@@ -52,30 +50,17 @@ MODES = {"given": 0, "drawn": 1, "draw_only": 2}
 
 _vp, _ci, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _cull = ctypes.c_ulonglong
-SIGNATURES = {
+LIB = _build.Library("alock_tick", {
     "alock_tick_launch": [_ci] + [_vp] * 15 + [_ci, _ci, _cll, _ci, _ci, _ci,
                                                _ci, _ci, _ci, _ci, _vp,
                                                _cull, _cull, _vp],
     "alock_tick_smem_bytes": [_ci] * 4,
-}
-
-
-def launches() -> int:
-    return LAUNCHES
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+})
 
 
 def last_plan() -> dict | None:
     """The plan of the last launch (``TickPlan.as_dict()``), or None."""
     return _LAST_PLAN
-
-
-def load():
-    return _build.load_library("alock_tick", SIGNATURES)
 
 
 # -- the shared-memory plan ---------------------------------------------------
@@ -240,13 +225,6 @@ def draw_words(seed: int, T: int, r0: int = 0,
 
 # -- launches -----------------------------------------------------------------
 
-def _check(what, **ops):
-    _build.require_cuda(what, **ops)
-    for name, t in ops.items():
-        if t.dtype != torch.int32:
-            raise ValueError(f"{what}: {name} must be int32, got {t.dtype}")
-
-
 def launch(lib, mode: str, p: TickPlan, state, cohorts, sched=None,
            sched_out=None, words: DrawWords | None = None, steps: int = 0,
            b_init=(5, 20), what: str = "alock_tick kernel"):
@@ -254,7 +232,7 @@ def launch(lib, mode: str, p: TickPlan, state, cohorts, sched=None,
     it) in ``mode`` with plan ``p``; ``state`` the six input arrays. Returns
     the six outputs (``sched_out`` is filled in ``draw_only`` mode). Counts
     the launch; raises if it was refused."""
-    global LAUNCHES, _LAST_PLAN
+    global _LAST_PLAN
     tails, victim, pc, budget, nxt, prev = state
     Tab, T = pc.shape
     out = [torch.empty_like(a) for a in state]
@@ -273,7 +251,7 @@ def launch(lib, mode: str, p: TickPlan, state, cohorts, sched=None,
             p.stages, wbuf, w.r0, w.pitch, _build.stream_of(pc))
     _build.check_launch(lib, err, f"{what} ({mode}, Tab={Tab}, T={T}, "
                                   f"steps={steps}, plan {p.as_dict()})")
-    LAUNCHES += 1
+    LIB.count()
     _LAST_PLAN = {**p.as_dict(), "launch_mode": mode}
     return out
 
@@ -285,11 +263,12 @@ def tick_kernel(tails, victim, pc, budget, nxt, prev, sched, cohorts, *,
     int32 CUDA tensors of the shapes ``alock_tick`` documents."""
     what = "alock_tick kernel"
     state = (tails, victim, pc, budget, nxt, prev)
-    _check(what, tails=tails, victim=victim, pc=pc, budget=budget, nxt=nxt,
-           prev=prev, sched=sched, cohorts=cohorts)
+    _build.check_operands(what, torch.int32, tails=tails, victim=victim,
+                          pc=pc, budget=budget, nxt=nxt, prev=prev,
+                          sched=sched, cohorts=cohorts)
     Tab, T = pc.shape
     p = tick_plan(T, tile, Tab, "given")
-    return launch(load(), "given", p, state, cohorts, sched=sched,
+    return launch(LIB.load(), "given", p, state, cohorts, sched=sched,
                   steps=sched.shape[1], b_init=b_init, what=what)
 
 
@@ -303,12 +282,13 @@ def tick_drawn(tails, victim, pc, budget, nxt, prev, cohorts, *, seed: int,
     stored. ``words`` overrides the launch words (the negative control)."""
     what = "alock_tick kernel, drawn schedule"
     state = (tails, victim, pc, budget, nxt, prev)
-    _check(what, tails=tails, victim=victim, pc=pc, budget=budget, nxt=nxt,
-           prev=prev, cohorts=cohorts)
+    _build.check_operands(what, torch.int32, tails=tails, victim=victim,
+                          pc=pc, budget=budget, nxt=nxt, prev=prev,
+                          cohorts=cohorts)
     Tab, T = pc.shape
     p = tick_plan(T, tile, Tab, "drawn")
     w = words or draw_words(seed, T, r0, steps if pitch is None else pitch)
-    return launch(load(), "drawn", p, state, cohorts, words=w, steps=steps,
+    return launch(LIB.load(), "drawn", p, state, cohorts, words=w, steps=steps,
                   b_init=b_init, what=what)
 
 
@@ -326,10 +306,10 @@ def draw_schedule(n_tables: int, steps: int, T: int, seed: int = 0,
              *(torch.zeros((n_tables, T), **i32) for _ in range(4)))
     cohorts = torch.zeros((n_tables, T), **i32)
     what = "alock_tick kernel, draw only"
-    _check(what, out=out, cohorts=cohorts)
+    _build.check_operands(what, torch.int32, out=out, cohorts=cohorts)
     w = draw_words(seed, T, r0, steps if pitch is None else pitch)
-    launch(load(), "draw_only", tick_plan(T, 128, n_tables, "drawn"), state,
-           cohorts, sched_out=out, words=w, steps=steps, what=what)
+    launch(LIB.load(), "draw_only", tick_plan(T, 128, n_tables, "drawn"),
+           state, cohorts, sched_out=out, words=w, steps=steps, what=what)
     return out
 
 

@@ -44,14 +44,14 @@ _SECONDS = {"schedule": 0.0, "engine": 0.0, "aggregate": 0.0}
 
 def exec_stats() -> dict:
     """Snapshot of {launches, seconds, plan} since the last reset."""
-    return {"launches": _kernel.launches(), "seconds": dict(_SECONDS),
+    return {"launches": _kernel.LIB.launches(), "seconds": dict(_SECONDS),
             "plan": _kernel.last_plan()}
 
 
 def reset_exec_stats() -> None:
     for k in _SECONDS:
         _SECONDS[k] = 0.0
-    _kernel.reset_launches()
+    _kernel.LIB.reset_launches()
 
 
 def _clock(dev) -> float:

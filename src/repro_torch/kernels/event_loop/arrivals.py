@@ -14,8 +14,9 @@ for ``sm_90a`` into ``build/`` (``kernels/_build``), loaded with
 neither ``nvcc`` nor a CUDA device.
 
 ``arrival_plan`` launches the kernel for CUDA tensors or raises — there is
-no path from here to the plain version. ``LAUNCHES`` counts its launches
-(one per call with at least one request), and nothing else increments it.
+no path from here to the plain version. ``LIB`` declares the library; it
+counts the launches (one per call with at least one request), and nothing
+else does.
 """
 from __future__ import annotations
 
@@ -26,35 +27,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.traffic.stream import ArrivalPlan
 
-#: number of kernel launches since the last ``reset_launches()``
-LAUNCHES = 0
-
-SOURCE = _build.CSRC / "arrival_plan.cu"
-NVCC_FLAGS = _build.FLAGS
-
 _vp, _ci, _cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-SIGNATURES = {"arrival_plan_launch": [_vp] * 10 + [_ci] * 3 + [_cu, _vp]}
-
-
-def launches() -> int:
-    return LAUNCHES
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
-
-
-def load():
-    """The loaded library (built on first use), with ``argtypes`` set."""
-    return _build.load_library("arrival_plan", SIGNATURES, NVCC_FLAGS)
-
-
-def _check(name, t, dtype, shape):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"arrival-plan kernel: {name} must be {dtype} of "
-                         f"shape {tuple(shape)}, got {t.dtype} "
-                         f"{tuple(t.shape)}")
+LIB = _build.Library("arrival_plan", {
+    "arrival_plan_launch": [_vp] * 10 + [_ci] * 3 + [_cu, _vp]})
 
 
 def arrival_plan(seed, arr_fix, arr_edges, arr_gap_ns, arr_token, arr_qcap,
@@ -64,25 +39,21 @@ def arrival_plan(seed, arr_fix, arr_edges, arr_gap_ns, arr_token, arr_qcap,
     f32``, ``arr_token (B, P, 2) f32`` and ``arr_qcap (B, P) i32`` CUDA
     tensors, in one launch on the current stream (no synchronise). The
     contract of ``ops.precompute_plan``; raises for anything else."""
-    global LAUNCHES
     B = seed.shape[0] if seed.dim() == 1 else -1
     R = arr_fix.shape[-1]
     P = arr_edges.shape[-1]
     i32, f32 = torch.int32, torch.float32
-    _check("seed", seed, i32, (B,))
-    _check("arr_fix", arr_fix, i32, (B, R))
-    _check("arr_edges", arr_edges, i32, (B, P))
-    _check("arr_gap_ns", arr_gap_ns, f32, (B, P))
-    _check("arr_token", arr_token, f32, (B, P, 2))
-    _check("arr_qcap", arr_qcap, i32, (B, P))
-    _build.require_cuda("arrival-plan kernel", seed=seed, arr_fix=arr_fix,
-                        arr_edges=arr_edges, arr_gap_ns=arr_gap_ns,
-                        arr_token=arr_token, arr_qcap=arr_qcap)
+    _build.check_operands(
+        "arrival-plan kernel", seed=(seed, i32, (B,)),
+        arr_fix=(arr_fix, i32, (B, R)), arr_edges=(arr_edges, i32, (B, P)),
+        arr_gap_ns=(arr_gap_ns, f32, (B, P)),
+        arr_token=(arr_token, f32, (B, P, 2)),
+        arr_qcap=(arr_qcap, i32, (B, P)))
     out = ArrivalPlan(*(torch.empty((B, R), dtype=i32, device=seed.device)
                         for _ in ArrivalPlan._fields))
     if B == 0 or R == 0:
         return out
-    lib = load()
+    lib = LIB.load()
     with torch.cuda.device(seed.device):
         err = lib.arrival_plan_launch(
             seed.data_ptr(), arr_fix.data_ptr(), arr_edges.data_ptr(),
@@ -91,5 +62,5 @@ def arrival_plan(seed, arr_fix, arr_edges, arr_gap_ns, arr_token, arr_qcap,
             (n_events + 1) & 0xFFFFFFFF, _build.stream_of(seed))
     _build.check_launch(lib, err, f"arrival-plan kernel (B={B}, R={R}, "
                                   f"P={P})")
-    LAUNCHES += 1
+    LIB.count()
     return out

@@ -14,8 +14,9 @@ for ``sm_90a`` into ``build/`` (``kernels/_build``), loaded with
 neither ``nvcc`` nor a CUDA device.
 
 ``draw_stream`` launches the kernel for CUDA tensors or raises — there is
-no path from here to the plain version. ``LAUNCHES`` counts its launches
-(one per call with at least one element), and nothing else increments it.
+no path from here to the plain version. ``LIB`` declares the library; it
+counts the launches (one per call with at least one element), and nothing
+else does.
 """
 from __future__ import annotations
 
@@ -25,28 +26,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: number of kernel launches since the last ``reset_launches()``
-LAUNCHES = 0
-
-SOURCE = _build.CSRC / "draw_stream.cu"
-NVCC_FLAGS = _build.FLAGS
-
 _vp, _ci, _cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-SIGNATURES = {"draw_stream_launch": [_vp] * 7 + [_ci] * 5 + [_cu, _cu, _vp]}
-
-
-def launches() -> int:
-    return LAUNCHES
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
-
-
-def load():
-    """The loaded library (built on first use), with ``argtypes`` set."""
-    return _build.load_library("draw_stream", SIGNATURES, NVCC_FLAGS)
+LIB = _build.Library("draw_stream", {
+    "draw_stream_launch": [_vp] * 7 + [_ci] * 5 + [_cu, _cu, _vp]})
 
 
 def randint_words(N: int) -> tuple[int, int]:
@@ -57,29 +39,19 @@ def randint_words(N: int) -> tuple[int, int]:
     return span, (mult * mult) % span
 
 
-def _check(name, t, dtype, shape):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"draw-stream kernel: {name} must be {dtype} of "
-                         f"shape {tuple(shape)}, got {t.dtype} "
-                         f"{tuple(t.shape)}")
-
-
 def draw_stream(seed, edges, zcdf, n_events: int, N: int, kpn: int,
                 rw: bool = False):
     """``(u1 f32, r2 i32, r3 i32[, u4 f32])``, each ``(B, n_events)``, for
     ``seed (B,) i32``, ``edges (B, P) i32`` and ``zcdf (B, P, kz) f32``
     CUDA tensors, in one launch on the current stream (no synchronise).
     The contract of ``ops.precompute_draws``; raises for anything else."""
-    global LAUNCHES
-    _build.require_cuda("draw-stream kernel", seed=seed, edges=edges,
-                        zcdf=zcdf)
     B = seed.shape[0] if seed.dim() == 1 else -1
     P = edges.shape[-1]
-    _check("seed", seed, torch.int32, (B,))
-    _check("edges", edges, torch.int32, (B, P))
-    _check("zcdf", zcdf, torch.float32, (B, P, zcdf.shape[-1]))
-    dev = seed.device
     f32, i32 = torch.float32, torch.int32
+    _build.check_operands("draw-stream kernel", seed=(seed, i32, (B,)),
+                          edges=(edges, i32, (B, P)),
+                          zcdf=(zcdf, f32, (B, P, zcdf.shape[-1])))
+    dev = seed.device
     u1 = torch.empty((B, n_events), dtype=f32, device=dev)
     r2 = torch.empty((B, n_events), dtype=i32, device=dev)
     r3 = torch.empty((B, n_events), dtype=i32, device=dev)
@@ -87,7 +59,7 @@ def draw_stream(seed, edges, zcdf, n_events: int, N: int, kpn: int,
     out = (u1, r2, r3, u4) if rw else (u1, r2, r3)
     if B == 0 or n_events < 1:
         return out
-    lib = load()
+    lib = LIB.load()
     span, mult = randint_words(N)
     with torch.cuda.device(dev):
         err = lib.draw_stream_launch(
@@ -98,5 +70,5 @@ def draw_stream(seed, edges, zcdf, n_events: int, N: int, kpn: int,
     _build.check_launch(lib, err, f"draw-stream kernel (B={B}, "
                                   f"n_events={n_events}, P={P}, "
                                   f"kz={zcdf.shape[-1]}, rw={rw})")
-    LAUNCHES += 1
+    LIB.count()
     return out

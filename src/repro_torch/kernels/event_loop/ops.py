@@ -13,8 +13,8 @@ on an explicitly requested CPU.
 
 The state-independent half of the workload draw stream is precomputed
 here (``precompute_draws``: one launch of the CUDA kernel ``draws.py`` /
-``csrc/draw_stream.cu`` on the kernel backend, the counter-based generator
-of ``core/prng.py`` in torch ops on the plain one): the raw locality
+``csrc/draw_stream.cu`` on the kernel backend, ``ref.draw_stream_plain``
+in torch ops on the plain one): the raw locality
 uniform, the remote-node offset and the phase-resolved Zipf offset depend
 only on ``(seed, event index)``, never
 on simulation state. The thread-dependent half (comparing the uniform
@@ -41,38 +41,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import prng
 from repro_torch.device import resolve_backend, resolve_device
 from repro_torch.kernels.event_loop import arrivals as _arrivals
 from repro_torch.kernels.event_loop import draws as _draws
 from repro_torch.kernels.event_loop import i32pair
 from repro_torch.kernels.event_loop import kernel as _kernel
-from repro_torch.kernels.event_loop.ref import LAT_SAMPLES, run_events_plain
+from repro_torch.kernels.event_loop.ref import (
+    LAT_SAMPLES, draw_stream_plain, run_events_plain)
 from repro_torch.traffic.stream import (ArrivalPlan, arrival_plan,
                                         arrival_times_i64)
 from repro_torch.workloads import WorkloadOperands, to_device
-
-#: bound on the (replica x event) elements hashed at once: every threefry
-#: temporary is an int64 tensor of a small multiple of this many elements
-DRAW_CHUNK_ELEMS = 1 << 22
-#: bound on the (replica x event x kpn) booleans of one inverse-CDF pass
-CDF_CHUNK_ELEMS = 1 << 27
-
-def _zipf_offsets(u3, ph, zcdf, kpn):
-    """``min(sum(u3 >= zcdf[ph]), kpn - 1)`` per (replica, event), int32.
-    ``ph`` is None for single-phase operands."""
-    B, E = u3.shape
-    P = zcdf.shape[1]
-    out = torch.empty((B, E), dtype=torch.int32, device=u3.device)
-    step = max(1, CDF_CHUNK_ELEMS // max(1, B * kpn))
-    for s in range(0, E, step):
-        u = u3[:, s:s + step, None]
-        cnt = (u >= zcdf[:, 0, None, :]).sum(-1)
-        for p in range(1, P):
-            cnt_p = (u >= zcdf[:, p, None, :]).sum(-1)
-            cnt = torch.where(ph[:, s:s + step] == p, cnt_p, cnt)
-        out[:, s:s + step] = cnt.clamp(max=kpn - 1).to(torch.int32)
-    return out
 
 
 def precompute_draws(seed, edges, zcdf, n_events: int, N: int, kpn: int,
@@ -89,11 +67,10 @@ def precompute_draws(seed, edges, zcdf, n_events: int, N: int, kpn: int,
 
     ``backend="kernel"`` makes the whole stream in one launch of the CUDA
     kernel ``draws.draw_stream`` (``csrc/draw_stream.cu``) and needs a
-    CUDA device; ``"plain"`` runs ``core/prng.py`` in torch integer ops on
-    whatever device was asked for, the event axis in chunks so that
-    temporaries stay bounded whatever ``B * n_events`` is; ``"auto"`` is
-    the kernel on a CUDA device and the plain version on an explicitly
-    requested CPU. The two give the same bits.
+    CUDA device; ``"plain"`` runs ``ref.draw_stream_plain`` on whatever
+    device was asked for; ``"auto"`` is the kernel on a CUDA device and the
+    plain version on an explicitly requested CPU. The two give the same
+    bits.
     """
     dev = resolve_device(device)
     backend = resolve_backend(backend, dev)
@@ -105,32 +82,7 @@ def precompute_draws(seed, edges, zcdf, n_events: int, N: int, kpn: int,
         return _draws.draw_stream(seed.to(torch.int32).contiguous(),
                                   edges.contiguous(), zcdf.contiguous(),
                                   n_events, N, kpn, rw=rw)
-    B = seed.shape[0]
-    P = edges.shape[1]
-    n_sub = 4 if rw else 3
-    u1 = torch.empty((B, n_events), dtype=torch.float32, device=dev)
-    r2 = torch.empty((B, n_events), dtype=torch.int32, device=dev)
-    r3 = torch.empty((B, n_events), dtype=torch.int32, device=dev)
-    u4 = torch.empty_like(u1) if rw else None
-    k0 = prng.key(seed)
-    k0 = (k0[0][:, None], k0[1][:, None])
-    step = max(1, DRAW_CHUNK_ELEMS // max(1, B))
-    for s in range(0, n_events, step):
-        i = torch.arange(s, min(s + step, n_events), dtype=torch.int64,
-                         device=dev)[None]
-        sub = prng.split(prng.fold_in(k0, i), n_sub)     # (n_sub, B, E)
-        # subkeys 0, 2 (, 3) feed uniforms; subkey 1 feeds randint
-        uni = [0, 2, 3][:n_sub - 1]
-        fl = prng.uniform((sub[0][uni], sub[1][uni]))
-        u1[:, s:s + step] = fl[0]
-        r2[:, s:s + step] = prng.randint((sub[0][1], sub[1][1]), (), 0,
-                                         max(N - 1, 1))
-        ph = ((i[:, :, None] >= edges[:, None, :]).sum(-1) - 1
-              if P > 1 else None)
-        r3[:, s:s + step] = _zipf_offsets(fl[1], ph, zcdf, kpn)
-        if rw:
-            u4[:, s:s + step] = fl[2]
-    return (u1, r2, r3, u4) if rw else (u1, r2, r3)
+    return draw_stream_plain(seed, edges, zcdf, n_events, N, kpn, rw=rw)
 
 
 def _as_tensor(a, dev, dtype=None) -> torch.Tensor:

@@ -9,7 +9,8 @@ per-replica indices. It runs on any device; it is what the CPU tests hold
 against the JAX reference bit for bit, and what the kernel is held against
 on the card. It is slow by construction (a few hundred small tensor ops
 per event) and nothing on the main path calls it when a CUDA device is
-present.
+present. ``draw_stream_plain`` is, in the same way, the draw stream the
+draw kernel (``csrc/draw_stream.cu``) computes.
 
 Semantics (one replica; every replica is independent):
 
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import machine as mc
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.traffic.metrics import COMPLETED, DROPPED, IN_SERVICE
 
@@ -55,6 +57,64 @@ OP_LOCAL, OP_POLL, OP_CS, OP_THINK, OP_RDMA, OP_LOOP = range(6)
 
 _NEVER = torch.iinfo(torch.int64).max    # parked threads lose every argmin
 _I32_MAX = torch.iinfo(torch.int32).max
+
+#: bound on the (replica x event) elements hashed at once: every threefry
+#: temporary is an int64 tensor of a small multiple of this many elements
+DRAW_CHUNK_ELEMS = 1 << 22
+#: bound on the (replica x event x kpn) booleans of one inverse-CDF pass
+CDF_CHUNK_ELEMS = 1 << 27
+
+
+def _zipf_offsets(u3, ph, zcdf, kpn):
+    """``min(sum(u3 >= zcdf[ph]), kpn - 1)`` per (replica, event), int32.
+    ``ph`` is None for single-phase operands."""
+    B, E = u3.shape
+    P = zcdf.shape[1]
+    out = torch.empty((B, E), dtype=torch.int32, device=u3.device)
+    step = max(1, CDF_CHUNK_ELEMS // max(1, B * kpn))
+    for s in range(0, E, step):
+        u = u3[:, s:s + step, None]
+        cnt = (u >= zcdf[:, 0, None, :]).sum(-1)
+        for p in range(1, P):
+            cnt_p = (u >= zcdf[:, p, None, :]).sum(-1)
+            cnt = torch.where(ph[:, s:s + step] == p, cnt_p, cnt)
+        out[:, s:s + step] = cnt.clamp(max=kpn - 1).to(torch.int32)
+    return out
+
+
+def draw_stream_plain(seed, edges, zcdf, n_events: int, N: int, kpn: int,
+                      rw: bool = False):
+    """The draw stream of ``ops.precompute_draws`` (its contract) in torch
+    integer ops on the operands' device: the counter-based generator of
+    ``core/prng.py``, the event axis in chunks so that temporaries stay
+    bounded whatever ``B * n_events`` is."""
+    dev = seed.device
+    B = seed.shape[0]
+    P = edges.shape[1]
+    n_sub = 4 if rw else 3
+    u1 = torch.empty((B, n_events), dtype=torch.float32, device=dev)
+    r2 = torch.empty((B, n_events), dtype=torch.int32, device=dev)
+    r3 = torch.empty((B, n_events), dtype=torch.int32, device=dev)
+    u4 = torch.empty_like(u1) if rw else None
+    k0 = prng.key(seed)
+    k0 = (k0[0][:, None], k0[1][:, None])
+    step = max(1, DRAW_CHUNK_ELEMS // max(1, B))
+    for s in range(0, n_events, step):
+        i = torch.arange(s, min(s + step, n_events), dtype=torch.int64,
+                         device=dev)[None]
+        sub = prng.split(prng.fold_in(k0, i), n_sub)     # (n_sub, B, E)
+        # subkeys 0, 2 (, 3) feed uniforms; subkey 1 feeds randint
+        uni = [0, 2, 3][:n_sub - 1]
+        fl = prng.uniform((sub[0][uni], sub[1][uni]))
+        u1[:, s:s + step] = fl[0]
+        r2[:, s:s + step] = prng.randint((sub[0][1], sub[1][1]), (), 0,
+                                         max(N - 1, 1))
+        ph = ((i[:, :, None] >= edges[:, None, :]).sum(-1) - 1
+              if P > 1 else None)
+        r3[:, s:s + step] = _zipf_offsets(fl[1], ph, zcdf, kpn)
+        if rw:
+            u4[:, s:s + step] = fl[2]
+    return (u1, r2, r3, u4) if rw else (u1, r2, r3)
 
 
 def _gat(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

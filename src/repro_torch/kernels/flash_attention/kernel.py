@@ -14,8 +14,8 @@ the first launch (``kernels/_build``); importing this module needs neither
 ``nvcc`` nor a CUDA device.
 
 ``flash_fwd_kernel`` launches the kernel for CUDA tensors or raises — no
-path leads from it to the plain version. ``LAUNCHES`` counts its launches
-(one per call), and nothing else increments it.
+path leads from it to the plain version. ``LIB`` declares the library; it
+counts the launches (one per call), and nothing else does.
 """
 from __future__ import annotations
 
@@ -27,35 +27,16 @@ from repro_torch.device import device_of, resolve_backend
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_fwd_plain
 
-#: number of kernel launches since the last ``reset_launches()``
-LAUNCHES = 0
-
 #: the input dtypes the kernel is instantiated for (code passed to C)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the largest head dimension the kernel's tiles take
 MAX_HD = 256
 
-#: the library's nvcc flags: the common ones, and ptxas's report of
-#: registers, shared memory and spills per kernel (``_build.BUILD_LOG``)
-NVCC_FLAGS = _build.FLAGS + ("-Xptxas", "-v")
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-SIGNATURES = {
+LIB = _build.Library("flash_attention", {
     "flash_fwd_launch": [_vp] * 5 + [_ci] * 5 + [_cf, _ci, _vp],
     "flash_fwd_smem_bytes": [_ci],
-}
-
-
-def launches() -> int:
-    return LAUNCHES
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
-
-
-def load():
-    return _build.load_library("flash_attention", SIGNATURES, NVCC_FLAGS)
+}, _build.REPORT_FLAGS)
 
 
 def block_rows(hd: int) -> int:
@@ -117,11 +98,10 @@ def flash_fwd_kernel(q, k, v, *, causal: bool = True, window=None):
     """Launch K3 on the current stream: ``(o, lse)`` as
     ``ref.flash_fwd_plain``. q, k, v: contiguous (B, H, S, hd) CUDA
     tensors of one dtype (float32 or bfloat16)."""
-    global LAUNCHES
     B, H, S, hd = q.shape
     check_kernel_operands("flash-attention forward kernel", hd, q=q, k=k,
                           v=v)
-    lib = load()
+    lib = LIB.load()
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -131,7 +111,7 @@ def flash_fwd_kernel(q, k, v, *, causal: bool = True, window=None):
             hd ** -0.5, DTYPES[q.dtype], _build.stream_of(q))
     _build.check_launch(lib, err, f"flash-attention forward (B={B}, H={H}, "
                                   f"S={S}, hd={hd}, {q.dtype})")
-    LAUNCHES += 1
+    LIB.count()
     return o, lse
 
 

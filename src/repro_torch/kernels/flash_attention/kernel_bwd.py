@@ -14,8 +14,8 @@ first launch; importing this module needs neither ``nvcc`` nor a CUDA
 device.
 
 ``flash_dq_kernel`` and ``flash_dkv_kernel`` launch for CUDA tensors or
-raise. ``LAUNCHES_DQ`` and ``LAUNCHES_DKV`` count their launches (one per
-call), and nothing else increments them.
+raise. ``LIB`` declares the library; it counts their launches as ``dq``
+and ``dkv`` (one per call), and nothing else does.
 """
 from __future__ import annotations
 
@@ -30,34 +30,13 @@ from repro_torch.kernels.flash_attention.kernel import (
     window_arg)
 from repro_torch.kernels.flash_attention.ref import flash_bwd_plain
 
-#: launches of K4 (dq) and of K5 (dk, dv) since ``reset_launches()``
-LAUNCHES_DQ = 0
-LAUNCHES_DKV = 0
-
-#: the library's nvcc flags: the common ones, and ptxas's report of
-#: registers, shared memory and spills per kernel (``_build.BUILD_LOG``)
-NVCC_FLAGS = _build.FLAGS + ("-Xptxas", "-v")
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-SIGNATURES = {
+LIB = _build.Library("flash_attention_bwd", {
     "flash_dq_launch": [_vp] * 7 + [_ci] * 5 + [_cf, _ci, _vp],
     "flash_dkv_launch": [_vp] * 8 + [_ci] * 5 + [_cf, _ci, _vp],
     "flash_dq_smem_bytes": [_ci],
     "flash_dkv_smem_bytes": [_ci],
-}
-
-
-def launches() -> dict:
-    return {"dq": LAUNCHES_DQ, "dkv": LAUNCHES_DKV}
-
-
-def reset_launches() -> None:
-    global LAUNCHES_DQ, LAUNCHES_DKV
-    LAUNCHES_DQ = LAUNCHES_DKV = 0
-
-
-def load():
-    return _build.load_library("flash_attention_bwd", SIGNATURES,
-                               NVCC_FLAGS)
+}, _build.REPORT_FLAGS, counts=("dq", "dkv"))
 
 
 def _geometry(hd: int, dtype) -> dict:
@@ -110,10 +89,9 @@ def _operands(q, k, v, do, lse, drow, what):
 def flash_dq_kernel(q, k, v, do, lse, drow, *, causal=True, window=None):
     """Launch K4: dq (B, H, S, hd) in q's dtype. Same operands as
     ``ref.flash_bwd_plain``, contiguous CUDA tensors."""
-    global LAUNCHES_DQ
     what = "flash-attention dq kernel"
     B, H, S, hd = _operands(q, k, v, do, lse, drow, what)
-    lib = load()
+    lib = LIB.load()
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.flash_dq_launch(
@@ -122,16 +100,15 @@ def flash_dq_kernel(q, k, v, do, lse, drow, *, causal=True, window=None):
             int(causal), window_arg(window), hd ** -0.5, DTYPES[q.dtype],
             _build.stream_of(q))
     _build.check_launch(lib, err, f"{what} (B={B}, H={H}, S={S}, hd={hd})")
-    LAUNCHES_DQ += 1
+    LIB.count("dq")
     return dq
 
 
 def flash_dkv_kernel(q, k, v, do, lse, drow, *, causal=True, window=None):
     """Launch K5: (dk, dv), each (B, H, S, hd) in k's and v's dtype."""
-    global LAUNCHES_DKV
     what = "flash-attention dk/dv kernel"
     B, H, S, hd = _operands(q, k, v, do, lse, drow, what)
-    lib = load()
+    lib = LIB.load()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = lib.flash_dkv_launch(
@@ -140,7 +117,7 @@ def flash_dkv_kernel(q, k, v, do, lse, drow, *, causal=True, window=None):
             B * H, S, hd, int(causal), window_arg(window), hd ** -0.5,
             DTYPES[q.dtype], _build.stream_of(q))
     _build.check_launch(lib, err, f"{what} (B={B}, H={H}, S={S}, hd={hd})")
-    LAUNCHES_DKV += 1
+    LIB.count("dkv")
     return dk, dv
 
 

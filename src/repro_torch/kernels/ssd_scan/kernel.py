@@ -12,8 +12,8 @@ first launch (``kernels/_build``); importing this module needs neither
 ``nvcc`` nor a CUDA device.
 
 ``ssd_kernel`` launches for CUDA tensors or raises — no path leads from it
-to the plain version. ``LAUNCHES`` counts its launches (one per call), and
-nothing else increments it.
+to the plain version. ``LIB`` declares the library; it counts the launches
+(one per call), and nothing else does.
 """
 from __future__ import annotations
 
@@ -27,8 +27,6 @@ from repro_torch.device import device_of, resolve_backend
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
 
-#: number of kernel launches since the last ``reset_launches()``
-LAUNCHES = 0
 _LAST_PLAN = None
 
 SMEM_LIMIT = _build.SMEM_LIMIT
@@ -36,32 +34,16 @@ SMEM_LIMIT = _build.SMEM_LIMIT
 MAX_L = 128
 #: SMs of an H100, the plan's default when no device is asked
 N_SM = 132
-#: ptxas's report (registers, spills) with every build
-NVCC_FLAGS = _build.FLAGS + ("-Xptxas", "-v")
-
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
-SIGNATURES = {
+LIB = _build.Library("ssd_scan", {
     "ssd_launch": [_vp] * 7 + [_ci] * 7 + [_vp],
     "ssd_smem_bytes": [_ci] * 4,
-}
-
-
-def launches() -> int:
-    return LAUNCHES
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+}, _build.REPORT_FLAGS)
 
 
 def last_plan() -> dict | None:
     """The plan of the last launch (``SsdPlan.as_dict()``), or None."""
     return None if _LAST_PLAN is None else _LAST_PLAN.as_dict()
-
-
-def load():
-    return _build.load_library("ssd_scan", SIGNATURES, NVCC_FLAGS)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -140,17 +122,13 @@ def ssd_kernel(xd, dA, b, c):
     """Launch K6 on the current stream, with ``ssd_plan``'s head tile:
     ``(y_diag, states, chunk_decay)`` as ``ref.ssd_chunk_ref``. All
     operands contiguous f32 CUDA tensors."""
-    global LAUNCHES, _LAST_PLAN
+    global _LAST_PLAN
     what = "SSD intra-chunk kernel"
-    _build.require_cuda(what, xd=xd, dA=dA, b=b, c=c)
-    for name, t in (("xd", xd), ("dA", dA), ("b", b), ("c", c)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{what}: {name} must be float32, got "
-                             f"{t.dtype}")
+    _build.check_operands(what, torch.float32, xd=xd, dA=dA, b=b, c=c)
     B, nc, L, H, P = xd.shape
     N = b.shape[-1]
     plan = ssd_plan(B, nc, H, L, P, N, _n_sm(xd.device))
-    lib = load()
+    lib = LIB.load()
     f32 = dict(dtype=torch.float32, device=xd.device)
     y = torch.empty((B, nc, L, H, P), **f32)
     states = torch.empty((B, nc, H, P, N), **f32)
@@ -162,7 +140,7 @@ def ssd_kernel(xd, dA, b, c):
             P, N, plan.hb, _build.stream_of(xd))
     _build.check_launch(lib, err, f"{what} (B={B}, nc={nc}, L={L}, H={H}, "
                                   f"P={P}, N={N}, hb={plan.hb})")
-    LAUNCHES += 1
+    LIB.count()
     _LAST_PLAN = plan
     return y, states, decay
 

@@ -234,11 +234,11 @@ def test_kernel_backend_on_cpu_raises():
 def test_kernel_wrapper_refuses_cpu_tensors():
     """The launcher takes CUDA tensors or raises, and counts nothing."""
     state = [torch.from_numpy(a) for a in _fresh(3, 2)]
-    before = tk.launches()
+    before = tk.LIB.launches()
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         tk.tick_kernel(*state, torch.zeros((3, 5), dtype=torch.int32),
                        torch.zeros((3, 2), dtype=torch.int32))
-    assert tk.launches() == before
+    assert tk.LIB.launches() == before
 
 
 def test_shape_checks():

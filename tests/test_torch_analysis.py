@@ -183,7 +183,7 @@ def test_smem_card_leg_against_fake_libraries(monkeypatch, entrypoints,
     from repro_torch.kernels.ssd_scan import kernel as sk
     lib = _FakeLib(drift)
     for mod in (el, tk, fk, fkb, sk):
-        monkeypatch.setattr(mod, "load", lambda: lib)
+        monkeypatch.setattr(mod.LIB, "load", lambda: lib)
     monkeypatch.setattr(rules, "on_card", lambda device: True)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda d: SimpleNamespace(
@@ -209,6 +209,27 @@ def test_build_key_card_leg_against_fake_loads(monkeypatch, right):
         (s, src, fl, lambda: None) for s, (src, fl) in builds.items()])
     found = check_build_key(device="cuda")
     assert len(found) == (0 if right else len(builds))
+
+
+def test_every_kernel_library_is_declared_once():
+    """Each ``csrc/*.cu`` has one ``Library`` declaration, in the module
+    that launches it, and ``kernel_builds()`` lists exactly those."""
+    libs = _build.declared()
+    stems = [stem for stem, *_ in rules.kernel_builds()]
+    assert sorted(libs) == sorted(stems) == sorted(
+        p.stem for p in _build.CSRC.glob("*.cu"))
+    assert all(lib.source.exists() and lib.stem == stem
+               for stem, lib in libs.items())
+    wrappers = (ROOT / "src" / "repro_torch" / "kernels").rglob("*.py")
+    assert sum(p.read_text().count("_build.Library(")
+               for p in wrappers) == len(libs)
+
+
+def test_a_second_declaration_of_a_library_raises():
+    from repro_torch.kernels.event_loop import kernel as el
+    with pytest.raises(ValueError, match="declared twice"):
+        _build.Library("event_loop", {})
+    assert _build.LIBRARIES["event_loop"] is el.LIB
 
 
 def test_build_key_covers_the_nvcc_version(monkeypatch):

@@ -91,10 +91,10 @@ def test_kernel_backend_on_the_cpu_raises():
 
 
 def test_plan_wrapper_raises_for_cpu_tensors():
-    before = arrivals.launches()
+    before = arrivals.LIB.launches()
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         arrivals.arrival_plan(**_kernel_args(), n_events=N_EVENTS)
-    assert arrivals.launches() == before
+    assert arrivals.LIB.launches() == before
 
 
 @pytest.mark.parametrize("name,bad", [
@@ -111,10 +111,10 @@ def test_plan_wrapper_raises_for_cpu_tensors():
 ])
 def test_plan_wrapper_raises_for_wrong_dtypes_or_shapes(name, bad):
     args = {**_kernel_args(), name: bad}
-    before = arrivals.launches()
+    before = arrivals.LIB.launches()
     with pytest.raises(ValueError, match=f"{name} must be"):
         arrivals.arrival_plan(**args, n_events=N_EVENTS)
-    assert arrivals.launches() == before
+    assert arrivals.LIB.launches() == before
 
 
 # -- routing ------------------------------------------------------------------
@@ -128,7 +128,7 @@ def test_cpu_and_plain_routes_are_the_stream_plan(backend):
     want = stream.arrival_plan(to_device(wl, "cpu"), N_EVENTS)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert got.tok.sum() < got.tok.numel()     # the bucket refused some
-    assert batch.exec_stats()["plan_launches"] == arrivals.launches() == 0
+    assert batch.exec_stats()["plan_launches"] == arrivals.LIB.launches() == 0
 
 
 def test_kernel_route_hands_the_operands_over(monkeypatch):
@@ -173,12 +173,13 @@ def test_run_events_and_sweep_pass_their_backend(monkeypatch, backend):
     assert batch.exec_stats()["plan_launches"] == 0
 
 
-def test_exec_stats_count_plan_launches(monkeypatch):
+def test_exec_stats_count_plan_launches():
     batch.reset_exec_stats()
-    monkeypatch.setattr(arrivals, "LAUNCHES", 3)
+    for _ in range(3):
+        arrivals.LIB.count()
     assert batch.exec_stats()["plan_launches"] == 3
     batch.reset_exec_stats()
-    assert batch.exec_stats()["plan_launches"] == arrivals.launches() == 0
+    assert batch.exec_stats()["plan_launches"] == arrivals.LIB.launches() == 0
 
 
 # -- the source against traffic/stream.py -------------------------------------
@@ -227,11 +228,11 @@ def test_one_device_threefry():
 
 def test_lint_registers_the_plan_kernel():
     builds = {stem: (src, fl) for stem, src, fl, _ in rules.kernel_builds()}
-    assert builds["arrival_plan"] == (arrivals.SOURCE, arrivals.NVCC_FLAGS)
-    assert arrivals.SOURCE == _build.CSRC / "arrival_plan.cu"
+    assert builds["arrival_plan"] == (arrivals.LIB.source, arrivals.LIB.flags)
+    assert arrivals.LIB.source == _build.CSRC / "arrival_plan.cu"
     assert rules.check_kernel_build() == []
     fast = rules.check_kernel_build(flag_sets={
-        "arrival_plan": arrivals.NVCC_FLAGS + ("--use_fast_math",)})
+        "arrival_plan": arrivals.LIB.flags + ("--use_fast_math",)})
     assert len(fast) == 1 and "arrival_plan" in fast[0].format()
     contracted = SOURCE.replace("rintf(__fmul_rn(-log1p_f32(-u), g_ns))",
                                 "rintf(-log1p_f32(-u) * g_ns)")
@@ -246,10 +247,10 @@ def test_build_key_changes_with_the_source(tmp_path, edit):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     src = csrc / "arrival_plan.cu"
-    before = _build.build_key(src, arrivals.NVCC_FLAGS, "nvcc A")
+    before = _build.build_key(src, arrivals.LIB.flags, "nvcc A")
     path = csrc / edit
     path.write_text(path.read_text() + "\n// edited\n")
-    assert _build.build_key(src, arrivals.NVCC_FLAGS, "nvcc A") != before
+    assert _build.build_key(src, arrivals.LIB.flags, "nvcc A") != before
 
 
 # -- on the card --------------------------------------------------------------
@@ -283,9 +284,9 @@ def _card_cases():
     "one_request", "ragged_tiles", "gap_ns_zero"])
 def test_kernel_equals_the_plain_route(card, case):
     wl = to_device(_card_cases()[case], card)
-    before = arrivals.launches()
+    before = arrivals.LIB.launches()
     got = precompute_plan(wl, N_EVENTS, device=card, backend="kernel")
-    assert arrivals.launches() == before + 1
+    assert arrivals.LIB.launches() == before + 1
     want = precompute_plan(wl, N_EVENTS, device=card, backend="plain")
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 

@@ -70,10 +70,10 @@ def test_kernel_backend_on_the_cpu_raises():
 @pytest.mark.parametrize("rw", [False, True])
 def test_draw_wrapper_raises_for_cpu_tensors(rw):
     seed, edges, zcdf = _operands(2, 3, 4)
-    before = draws.launches()
+    before = draws.LIB.launches()
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         draws.draw_stream(seed, edges, zcdf, 16, 2, 4, rw=rw)
-    assert draws.launches() == before
+    assert draws.LIB.launches() == before
 
 
 # -- routing ------------------------------------------------------------------
@@ -117,12 +117,13 @@ def test_run_events_and_sweep_pass_their_backend(monkeypatch, backend):
     assert batch.exec_stats()["draw_launches"] == 0
 
 
-def test_exec_stats_count_draw_launches(monkeypatch):
+def test_exec_stats_count_draw_launches():
     batch.reset_exec_stats()
-    monkeypatch.setattr(draws, "LAUNCHES", 3)
+    for _ in range(3):
+        draws.LIB.count()
     assert batch.exec_stats()["draw_launches"] == 3
     batch.reset_exec_stats()
-    assert batch.exec_stats()["draw_launches"] == draws.launches() == 0
+    assert batch.exec_stats()["draw_launches"] == draws.LIB.launches() == 0
 
 
 # -- the launch words ---------------------------------------------------------
@@ -180,11 +181,11 @@ def test_one_device_threefry(source):
 
 def test_lint_registers_the_draw_kernel():
     builds = {stem: (src, fl) for stem, src, fl, _ in rules.kernel_builds()}
-    assert builds["draw_stream"] == (draws.SOURCE, draws.NVCC_FLAGS)
-    assert draws.SOURCE == _build.CSRC / "draw_stream.cu"
+    assert builds["draw_stream"] == (draws.LIB.source, draws.LIB.flags)
+    assert draws.LIB.source == _build.CSRC / "draw_stream.cu"
     assert rules.check_kernel_build() == []
     fast = rules.check_kernel_build(
-        flag_sets={"draw_stream": draws.NVCC_FLAGS + ("--use_fast_math",)})
+        flag_sets={"draw_stream": draws.LIB.flags + ("--use_fast_math",)})
     assert len(fast) == 1 and "draw_stream" in fast[0].format()
 
 
@@ -196,11 +197,11 @@ def test_build_key_covers_the_threefry_header(tmp_path):
     keys = {}
     for stem in ("draw_stream", "alock_tick"):
         src = csrc / f"{stem}.cu"
-        before = _build.build_key(src, draws.NVCC_FLAGS, "nvcc A")
+        before = _build.build_key(src, draws.LIB.flags, "nvcc A")
         header = csrc / "threefry.cuh"
         text = header.read_text()
         header.write_text(text.replace("0x1BD11BDAu", "0x1BD11BDBu"))
-        keys[stem] = before != _build.build_key(src, draws.NVCC_FLAGS,
+        keys[stem] = before != _build.build_key(src, draws.LIB.flags,
                                                 "nvcc A")
         header.write_text(text)
     assert keys == {"draw_stream": True, "alock_tick": True}
@@ -214,10 +215,10 @@ def test_kernel_equals_the_plain_version(card, rw):
     for P, N, kpn in ((1, 1, 1), (3, 2, 50), (3, 20, 200)):
         seed, edges, zcdf = (t.to(card) for t in _operands(
             4, P, kpn, late_start=True))
-        before = draws.launches()
+        before = draws.LIB.launches()
         got = precompute_draws(seed, edges, zcdf, 2047, N, kpn, rw=rw,
                                device=card, backend="kernel")
-        assert draws.launches() == before + 1
+        assert draws.LIB.launches() == before + 1
         want = precompute_draws(seed, edges, zcdf, 2047, N, kpn, rw=rw,
                                 device=card, backend="plain")
         assert all(torch.equal(a, b) for a, b in zip(got, want))

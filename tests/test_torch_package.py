@@ -148,14 +148,14 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     tn, ln, _ = topology("alock", 2, 2, 8)
     streams = precompute_draws(wl.seed, wl.edges, wl.zcdf, 50, 2, 4,
                                device="cpu")
-    before = kernel.launches()
+    before = kernel.LIB.launches()
     import torch
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         kernel.run_events_kernel("alock", 4, 2, 8, 50, wl,
                                  torch.from_numpy(tn),
                                  torch.from_numpy(ln), streams,
                                  lat_samples=64)
-    assert kernel.launches() == before
+    assert kernel.LIB.launches() == before
 
 
 def test_smem_budget_raises_actionably():

@@ -57,7 +57,7 @@ def test_precompute_draws_bitwise(N, P, rw):
 
 def test_chunked_equals_unchunked(monkeypatch):
     """The event-axis chunking bounds temporaries and changes nothing."""
-    from repro_torch.kernels.event_loop import ops
+    from repro_torch.kernels.event_loop import ref
     rng = np.random.default_rng(3)
     B, P, kpn = len(SEEDS), 2, 5
     edges = np.tile(np.int32([0, 130]), (B, 1))
@@ -65,8 +65,8 @@ def test_chunked_equals_unchunked(monkeypatch):
     args = (torch.from_numpy(SEEDS), torch.from_numpy(edges),
             torch.from_numpy(zcdf), N_EVENTS, 4, kpn)
     whole = precompute_draws(*args, rw=True, device="cpu")
-    monkeypatch.setattr(ops, "DRAW_CHUNK_ELEMS", 4 * 37)
-    monkeypatch.setattr(ops, "CDF_CHUNK_ELEMS", 4 * 5 * 11)
+    monkeypatch.setattr(ref, "DRAW_CHUNK_ELEMS", 4 * 37)
+    monkeypatch.setattr(ref, "CDF_CHUNK_ELEMS", 4 * 5 * 11)
     parts = precompute_draws(*args, rw=True, device="cpu")
     for a, b in zip(whole, parts):
         assert torch.equal(a, b)

@@ -125,10 +125,10 @@ def test_device_policy():
         ssd_intra_chunk(*ops, backend="kernel")
     with pytest.raises(ValueError, match="one device"):
         ssd_forward(xh, dt, a.to("meta"), b, c, chunk=8)
-    before = sk.launches()
+    before = sk.LIB.launches()
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         sk.ssd_kernel(*ops)
-    assert sk.launches() == before
+    assert sk.LIB.launches() == before
 
 
 def test_cuda_tensors_raise_without_cuda(monkeypatch):

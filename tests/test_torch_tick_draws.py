@@ -195,12 +195,12 @@ def test_drawn_wrappers_refuse_cpu_tensors():
     nothing."""
     state = ops.fresh_tables(3, 2, device="cpu")
     coh = torch.zeros((3, 2), dtype=torch.int32)
-    before = tk.launches()
+    before = tk.LIB.launches()
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         tk.tick_drawn(*state, coh, seed=0, steps=5)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         tk.draw_schedule(3, 5, 2, device="cpu")
-    assert tk.launches() == before
+    assert tk.LIB.launches() == before
     assert "plan" in ops.exec_stats()
 
 
