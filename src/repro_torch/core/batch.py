@@ -54,7 +54,9 @@ named by the stage the host was in. The spans nest as ``experiment.run >
 sweep > sweep.lower | sweep.pack | sweep.issue (> sweep.upload,
 sweep.draws, sweep.plan, sweep.launch) | sweep.wait | sweep.copy_back |
 sweep.aggregate``; ``result.latency`` and ``result.serving`` are the
-``BatchResult`` reductions.
+``BatchResult`` reductions. ``serving_mean`` reduces all of a result's
+seeds in one vectorised pass (``traffic.metrics.serving_table``), counted
+in ``exec_stats()["serving"]``.
 """
 from __future__ import annotations
 
@@ -78,7 +80,7 @@ from repro_torch.kernels.event_loop import smem_plan as _smem_plan
 from repro_torch.kernels.event_loop.ops import (precompute_draws,
                                                 precompute_plan, run_events)
 from repro_torch.parallel import sharding as _sharding
-from repro_torch.traffic.metrics import serving_summary
+from repro_torch.traffic.metrics import serving_summary, serving_table
 from repro_torch.workloads import (OPERAND_DTYPES, Workload,
                                    WorkloadOperands, as_workload, lower,
                                    pad_phases, to_device)
@@ -126,13 +128,18 @@ IN_FLIGHT_SHARE = 0.5
 # runs every event), "ops" the lock operations the loop began (its NCS
 # steps, the only events at which it reads the draws) and "reads" those
 # begun shared (alock-rw's readers; 0 for every other algorithm), both
-# counted by the engine into its ``diag``. "smem_plan" is the event-loop
-# kernel's last shared-memory plan (None before any launch).
+# counted by the engine into its ``diag``. "serving": "passes" counts the
+# ``serving_mean`` calls (one ``serving_table`` pass over a result's
+# seeds each), "seeds" the seeds those passes summarised and "fallback"
+# the seeds the pass's 2**53 guard sent to ``serving_summary`` one by one.
+# "smem_plan" is the event-loop kernel's last shared-memory plan (None
+# before any launch).
 _STATS = {"dispatches": 0}
 _SECONDS = {"lower": 0.0, "issue": 0.0, "plan": 0.0, "wait": 0.0,
             "draws": 0.0, "engine": 0.0, "engine_only": 0.0,
             "aggregate": 0.0, "results": 0.0, "wall": 0.0}
 _EVENTS = {"drawn": 0, "run": 0, "ops": 0, "reads": 0}
+_SERVING = {"passes": 0, "seeds": 0, "fallback": 0}
 _STREAMS: dict = {}
 
 
@@ -156,10 +163,11 @@ def stage(name: str, counter: str | None = None):
 
 def exec_stats() -> dict:
     """Snapshot of {dispatches, launches, draw_launches, plan_launches,
-    seconds, events, smem_plan} since the last reset. ``seconds``: lower,
-    issue, plan, wait, draws, engine, engine_only, aggregate, results, wall
-    (see the comment above ``_SECONDS``); ``events``: {drawn, run, ops,
-    reads}."""
+    seconds, events, serving, smem_plan} since the last reset.
+    ``seconds``: lower, issue, plan, wait, draws, engine, engine_only,
+    aggregate, results, wall (see the comment above ``_SECONDS``);
+    ``events``: {drawn, run, ops, reads}; ``serving``: {passes, seeds,
+    fallback}."""
     plan = _smem_plan.last_plan()
     return {"dispatches": _STATS["dispatches"],
             "launches": _kernel.LIB.launches(),
@@ -167,6 +175,7 @@ def exec_stats() -> dict:
             "plan_launches": _arrivals.LIB.launches(),
             "seconds": dict(_SECONDS),
             "events": dict(_EVENTS),
+            "serving": dict(_SERVING),
             "smem_plan": None if plan is None else plan.as_dict()}
 
 
@@ -176,6 +185,8 @@ def reset_exec_stats() -> None:
         _SECONDS[k] = 0.0
     for k in _EVENTS:
         _EVENTS[k] = 0
+    for k in _SERVING:
+        _SERVING[k] = 0
     for mod in (_kernel, _draws, _arrivals):
         mod.LIB.reset_launches()
     _smem_plan.clear_plan()
@@ -242,9 +253,6 @@ class BatchResult(NamedTuple):
     @stage("result.serving", "results")
     def serving(self, i: int) -> dict:
         """One seed's ``traffic.metrics.serving_summary`` dict."""
-        return self._serving(i)
-
-    def _serving(self, i: int) -> dict:
         if not self.open_loop:
             raise ValueError("serving() needs an open-loop run "
                              "(Workload.arrivals)")
@@ -254,11 +262,23 @@ class BatchResult(NamedTuple):
 
     @stage("result.serving", "results")
     def serving_mean(self) -> dict:
-        """Seed-averaged serving summary (nan-safe over empty seeds)."""
-        rows = [self._serving(i) for i in range(self.n_seeds)]
+        """Seed-averaged serving summary (nan-safe over empty seeds): the
+        mean of each key over its finite values, from one
+        ``serving_table`` pass over the seeds, whose rows are
+        ``serving(i)``'s bits."""
+        if not self.open_loop:
+            raise ValueError("serving_mean() needs an open-loop run "
+                             "(Workload.arrivals)")
+        table, fallback = serving_table(self.arr_ns, self.wait_ns,
+                                        self.sojourn_ns, self.rstat,
+                                        self.sim_ns)
+        n_fallback = int(fallback.sum())
+        _SERVING["passes"] += 1
+        _SERVING["seeds"] += self.n_seeds - n_fallback
+        _SERVING["fallback"] += n_fallback
         out = {}
-        for k in rows[0]:
-            vals = np.asarray([r[k] for r in rows], np.float64)
+        for k, col in table.items():
+            vals = col.astype(np.float64)
             finite = vals[np.isfinite(vals)]
             out[k] = float(finite.mean()) if len(finite) else float("nan")
         return out

@@ -1,6 +1,7 @@
 """The port's spans and counters: ``batch.stage``'s host spans under
 ``torch.profiler`` and the stage counters of ``exec_stats()`` they feed,
-and the events the loop ran against the events drawn (``diag``).
+the events the loop ran against the events drawn (``diag``), and the
+serving summaries' pass count (``exec_stats()["serving"]``).
 
 CPU tests run a tiny closed-plus-open ``Experiment`` on the plain engine.
 The ``card`` tests hold K1's ``diag`` to the plain engine's on a CUDA
@@ -11,12 +12,13 @@ out the root ``conftest.py``, which imports JAX).
 import numpy as np
 import pytest
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch.core import batch
 from repro_torch.core.cost_model import CostModel
 from repro_torch.experiments import ExecOptions, Experiment
 from repro_torch.kernels.event_loop.ops import run_events
+from repro_torch.traffic import metrics
 from repro_torch.workloads import Arrivals, Workload, lower
 
 EV = 32
@@ -137,6 +139,44 @@ def test_closed_buckets_run_what_they_draw_and_make_no_plan():
     batch.reset_exec_stats()
     assert batch.exec_stats()["events"] == {"drawn": 0, "run": 0, "ops": 0,
                                             "reads": 0}
+
+
+def test_serving_pass_counts_the_open_loop_seeds(traced):
+    _, st = traced
+    # one open-loop workload's serving_mean(): one pass over its seeds
+    assert st["serving"] == {"passes": 1, "seeds": SEEDS * 1, "fallback": 0}
+
+
+def test_closed_sweep_makes_no_serving_pass_and_reset_zeroes_it():
+    exp = _experiment(DRAINS)
+    batch.reset_exec_stats()
+    exp.run()["0"].serving_mean()
+    assert batch.exec_stats()["serving"]["seeds"] == SEEDS
+    batch.reset_exec_stats()
+    assert batch.exec_stats()["serving"] == {"passes": 0, "seeds": 0,
+                                             "fallback": 0}
+    for _, _, br in _experiment(BASE, BASE.replace(alg="mcs")).run():
+        br.mean_mops, br.mean_lat_us, br.p99_lat_ns
+    assert batch.exec_stats()["serving"] == {"passes": 0, "seeds": 0,
+                                             "fallback": 0}
+
+
+def test_serving_span_wraps_the_pass(monkeypatch):
+    br = _experiment(DRAINS).run()["0"]
+
+    def probed(*a):
+        with record_function("probe.serving_table"):
+            return metrics.serving_table(*a)
+
+    monkeypatch.setattr(batch, "serving_table", probed)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        br.serving_mean()
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.name() in ("result.serving", "probe.serving_table"))
+    assert [n for _, _, n in spans] == ["result.serving",
+                                        "probe.serving_table"]
+    assert _parent(spans, 1) == "result.serving"
 
 
 def test_stage_counts_without_a_profiler():
