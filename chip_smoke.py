@@ -60,13 +60,25 @@ started together), then prints one JSON object per phase:
               (``simbench/configs/ycsb-rw-1000.json``: alock-rw, T = 160,
               N = 20, K = 1,000, Zipf 0.99, YCSB A, B and C x 32 seeds, B =
               96), packed as ``sweep`` packs it: at 3,000 events the
-              kernels (the draw kernel, then K1 with a four-column
+              kernels (the draw kernel, then K1 with a five-column
               ``diag``) against the plain route (plain draws, plain engine),
               ``torch.equal`` on the four draw streams, the six outputs and
               the counts of lock operations begun and begun shared; then
               K1 alone at 150,000 events over 3 launches after a warm-up,
               with its bound, the RW draw kernel's time, and each mix's
               share of operations begun shared
+  rack_churn  the bucket of the benchmark's hierarchical rack lock under
+              node churn (``simbench/configs/rack-churn-20n.json``: hlock,
+              T = 160, N = 20, K = 1,000, two rack layouts, steady and with
+              node 3 parked for the middle 40 % of the events, x 32 seeds,
+              B = 384, padded to three phases), packed as ``sweep`` packs
+              it: at 3,000 events the draw kernel and K1 with its
+              five-column ``diag`` against the plain route; then K1 alone
+              at 150,000 events on the two-rack churn workloads (B = 96)
+              and on the whole bucket, with bounds, each workload's share
+              of lock operations begun on the loopback tier, and alock's K1
+              at the widest Fig. 5 bucket in the same process; callable
+              alone as ``chip_smoke.rack_churn_phase(torch, dev)``
   golden      the kernel's outputs for six full-width replicas equal the
               digests the JAX reference wrote to
               ``tests/golden/torch_fig5_full.json``
@@ -277,6 +289,9 @@ PLAN_REPS = 50
 RW_CONFIG = os.path.join(HERE, "simbench", "configs", "ycsb-rw-1000.json")
 RW_SEED = 26
 RW_EV_CUT = 3000
+#: the benchmark's hierarchical rack lock under node churn
+RACK_CONFIG = os.path.join(HERE, "simbench", "configs", "rack-churn-20n.json")
+RACK_SEED = 30
 
 # published peaks of one H100 SXM (dense, full power limit); HBM's, the
 # integer rate's and the SM clock, with the draws' and the event step's
@@ -1684,21 +1699,79 @@ def traffic_plan_phase(torch, dev, cases, ramp):
             "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
+def packed_bucket(torch, dev, ws, S, n_events):
+    """The workloads ``ws`` (one shape bucket) x ``S`` seeds, lowered and
+    packed as ``sweep`` packs a bucket (phases padded to the bucket's
+    most): ``(thread_node, lock_node, operands)`` on ``dev``."""
+    from repro_torch.core import batch
+    from repro_torch.core.cost_model import CostModel
+    from repro_torch.workloads import lower, to_device
+    lows = [lower(w, n_events) for w in ws]
+    tn, ln, _, wl = batch._pack(lows[0].shape_key,
+                                [lw.operands for lw in lows], S, 1,
+                                CostModel())
+    return (torch.from_numpy(tn).to(dev), torch.from_numpy(ln).to(dev),
+            to_device(wl, dev))
+
+
+def engine_with_diag(torch, dev, alg, T, N, K, n_events, wl, tn, ln,
+                     streams, backend):
+    """``run_events`` on the given draw streams with a ``diag`` (filled
+    with -7 first, so a column the engine leaves shows): its outputs and
+    the diag."""
+    from repro_torch.kernels.event_loop.ops import run_events
+    from repro_torch.kernels.event_loop.ref import DIAG_COLS
+    diag = torch.full((int(wl.seed.shape[0]), DIAG_COLS), -7,
+                      dtype=torch.int32, device=dev)
+    out = run_events(alg, T, N, K, n_events, wl, tn, ln, backend=backend,
+                     device=dev, streams=streams, diag=diag)
+    return out, diag
+
+
+def cut_check(torch, dev, alg, T, N, K, wl, tn, ln, n_events):
+    """At ``n_events`` events, the draw kernel and K1 against the plain
+    draws and the plain engine on the card: ``torch.equal`` on every draw
+    stream, every output and the ``diag``. Returns the kernel's outputs
+    and diag and the comparison's fields."""
+    from repro_torch.kernels.event_loop.ops import precompute_draws
+
+    def draws(backend):
+        return precompute_draws(wl.seed, wl.edges, wl.zcdf, n_events, N,
+                                K // N, rw=alg == "alock-rw", device=dev,
+                                backend=backend)
+
+    sk, sp = draws("kernel"), draws("plain")
+    draws_equal = len(sk) == len(sp) and all(
+        torch.equal(a, b) for a, b in zip(sk, sp))
+    out_k, diag_k = engine_with_diag(torch, dev, alg, T, N, K, n_events, wl,
+                                     tn, ln, sk, "kernel")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p, diag_p = engine_with_diag(torch, dev, alg, T, N, K, n_events, wl,
+                                     tn, ln, sp, "plain")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    outs_equal = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+    diag_equal = torch.equal(diag_k, diag_p)
+    return out_k, diag_k, {
+        "n_events": n_events, "draws_equal": draws_equal,
+        "outputs_equal": outs_equal, "diag_equal": diag_equal,
+        "plain_ms": plain_ms}
+
+
 def rw_ycsb_phase(torch, dev):
     """``ycsb-rw-1000``'s widest bucket (its 20-node workloads, YCSB A, B
     and C, x ``n_seeds``), lowered and packed as ``sweep`` does: at
     ``RW_EV_CUT`` events the draw kernel and K1 against the plain draws
     and the plain engine on the card, ``torch.equal`` on every draw
-    stream, every output and the four-column ``diag`` (events run, path,
-    lock operations begun, begun shared); then at ``N_EVENTS`` the RW draw
-    kernel's time and K1's alone (3 launches after a warm-up, CUDA events),
-    K1's bound and each mix's share of operations begun shared."""
-    from repro_torch.core import batch
-    from repro_torch.core.cost_model import CostModel
+    stream, every output and the five-column ``diag`` (events run, path,
+    lock operations begun, begun shared, begun on the loopback tier); then
+    at ``N_EVENTS`` the RW draw kernel's time and K1's alone (3 launches
+    after a warm-up, CUDA events), K1's bound and each mix's share of
+    operations begun shared."""
     from repro_torch.kernels.event_loop import smem_plan
     from repro_torch.kernels.event_loop.ops import (precompute_draws,
                                                     run_events)
-    from repro_torch.workloads import lower, to_device
     if HERE not in sys.path:
         sys.path.insert(0, HERE)
     from simbench.inputs import grid
@@ -1714,24 +1787,9 @@ def rw_ycsb_phase(torch, dev):
                ws[0].n_locks)
     alg = ws[0].alg
 
-    def packed(n_events):
-        lows = [lower(w, n_events) for w in ws]
-        tn, ln, _, wl = batch._pack(lows[0].shape_key,
-                                    [lw.operands for lw in lows], S, 1,
-                                    CostModel())
-        return (torch.from_numpy(tn).to(dev), torch.from_numpy(ln).to(dev),
-                to_device(wl, dev))
-
     def draws(wl, n_events, backend):
         return precompute_draws(wl.seed, wl.edges, wl.zcdf, n_events, N,
                                 K // N, rw=True, device=dev, backend=backend)
-
-    def engine(wl, tn, ln, n_events, streams, backend):
-        diag = torch.full((int(wl.seed.shape[0]), 4), -7, dtype=torch.int32,
-                          device=dev)
-        out = run_events(alg, T, N, K, n_events, wl, tn, ln, backend=backend,
-                         device=dev, streams=streams, diag=diag)
-        return out, diag
 
     def elapsed_ms(fn, reps):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1743,29 +1801,22 @@ def rw_ycsb_phase(torch, dev):
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    tn, ln, wl = packed(RW_EV_CUT)
+    tn, ln, wl = packed_bucket(torch, dev, ws, S, RW_EV_CUT)
     B = int(wl.seed.shape[0])
-    sk, sp = draws(wl, RW_EV_CUT, "kernel"), draws(wl, RW_EV_CUT, "plain")
-    draws_equal = len(sk) == len(sp) == 4 and all(
-        torch.equal(a, b) for a, b in zip(sk, sp))
-    out_k, diag_k = engine(wl, tn, ln, RW_EV_CUT, sk, "kernel")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out_p, diag_p = engine(wl, tn, ln, RW_EV_CUT, sp, "plain")
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    outs_equal = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
-    diag_equal = torch.equal(diag_k, diag_p)
+    out_k, diag_k, cut = cut_check(torch, dev, alg, T, N, K, wl, tn, ln,
+                                   RW_EV_CUT)
     ops_cut, reads_cut = (int(diag_k[:, j].sum()) for j in (2, 3))
     sane = (bool((diag_k[:, 0] == RW_EV_CUT).all())
             and 0 < reads_cut < ops_cut < B * RW_EV_CUT
+            and int(diag_k[:, 4].abs().sum()) == 0
             and int(out_k[0].sum()) > 0)
-    del sk, sp, out_k, out_p, wl
+    del out_k, wl
 
-    tn, ln, wl = packed(N_EVENTS)
+    tn, ln, wl = packed_bucket(torch, dev, ws, S, N_EVENTS)
     draw_ms = elapsed_ms(lambda: draws(wl, N_EVENTS, "kernel"), 3)
     streams = draws(wl, N_EVENTS, "kernel")
-    _, diag = engine(wl, tn, ln, N_EVENTS, streams, "kernel")   # warm-up
+    _, diag = engine_with_diag(torch, dev, alg, T, N, K, N_EVENTS, wl, tn,
+                               ln, streams, "kernel")          # warm-up
     ms = elapsed_ms(lambda: run_events(
         alg, T, N, K, N_EVENTS, wl, tn, ln, backend="kernel", device=dev,
         streams=streams), 3)
@@ -1780,19 +1831,108 @@ def rw_ycsb_phase(torch, dev):
                       "reads_over_ops": reads / ops,
                       "ops_over_events": ops / (S * N_EVENTS)})
     del streams, wl
-    ok = draws_equal and outs_equal and diag_equal and sane
+    ok = (cut["draws_equal"] and cut["outputs_equal"] and cut["diag_equal"]
+          and sane)
     emit({"phase": "rw_ycsb", "tolerance": 0, "equal": ok,
           "shape": dict(alg=alg, T=T, N=N, K=K, B=B, zipf_s=ws[0].zipf_s,
                         read_frac=[w.read_frac for w in ws]),
-          "cut": {"n_events": RW_EV_CUT, "draws_equal": draws_equal,
-                  "outputs_equal": outs_equal, "diag_equal": diag_equal,
-                  "ops": ops_cut, "reads": reads_cut, "plain_ms": plain_ms},
+          "cut": dict(cut, ops=ops_cut, reads=reads_cut),
           "n_events": N_EVENTS, "k1_ms": ms, "reps": 3,
           "draw_kernel_ms": draw_ms, "smem_plan": plan, **k1_row(bound),
           "mixes": mixes})
     if not ok:
         raise SystemExit("rw_ycsb: the kernels and the plain route disagree "
                          "on the reader-writer lock table")
+
+
+def rack_churn_phase(torch, dev):
+    """``rack-churn-20n``'s bucket, the benchmark's hierarchical rack lock
+    under node churn (hlock, T = 160, N = 20, K = 1,000; its 12 workloads
+    padded to three phases, x ``n_seeds``: B = 384), lowered and packed as
+    ``sweep`` does: at ``RW_EV_CUT`` events (phase edges at 30 % and 70 %
+    of them) the draw kernel and K1 against the plain draws and the plain
+    engine on the card, ``torch.equal`` on every draw stream, every output
+    and the five-column ``diag``. Then at ``N_EVENTS``, CUDA events over 3
+    launches after a warm-up: K1 on the three churn workloads of the
+    two-rack layout (B = 96, three phases) and on the whole bucket, with
+    their bounds, each workload's share of lock operations begun on the
+    loopback tier, and, in the same process, alock's K1 at the widest Fig.
+    5 bucket (``k1_path_shapes``' shape) as the yardstick."""
+    from repro_torch.kernels.event_loop import smem_plan
+    from repro_torch.kernels.event_loop.ops import (precompute_draws,
+                                                    run_events)
+    from repro_torch.workloads import Workload
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    from simbench.inputs import grid
+    from simbench.program import to_workload
+
+    with open(RACK_CONFIG) as f:
+        cfg = json.load(f)
+    S, ds = cfg["n_seeds"], grid(cfg)
+    ws = [to_workload(dict(d, seed=RACK_SEED)) for d in ds]
+    T, N, K = (ws[0].n_nodes * ws[0].threads_per_node, ws[0].n_nodes,
+               ws[0].n_locks)
+    alg = ws[0].alg
+
+    tn, ln, wl = packed_bucket(torch, dev, ws, S, RW_EV_CUT)
+    B, P = int(wl.seed.shape[0]), int(wl.edges.shape[1])
+    out_k, diag_k, cut = cut_check(torch, dev, alg, T, N, K, wl, tn, ln,
+                                   RW_EV_CUT)
+    ops_cut, loop_cut = (int(diag_k[:, j].sum()) for j in (2, 4))
+    sane = (bool((diag_k[:, 0] == RW_EV_CUT).all())
+            and 0 < loop_cut < ops_cut < B * RW_EV_CUT
+            and int(diag_k[:, 3].abs().sum()) == 0
+            and int(out_k[0].sum()) > 0)
+    del out_k, wl
+
+    def timed(sub_ws, a):
+        """K1 alone at ``N_EVENTS`` on ``sub_ws`` x ``S``: time, plan,
+        bound and the per-workload diag sums."""
+        tn, ln, wl = packed_bucket(torch, dev, sub_ws, S, N_EVENTS)
+        Tw, Nw, Kw = (sub_ws[0].n_nodes * sub_ws[0].threads_per_node,
+                      sub_ws[0].n_nodes, sub_ws[0].n_locks)
+        streams = precompute_draws(wl.seed, wl.edges, wl.zcdf, N_EVENTS, Nw,
+                                   Kw // Nw, device=dev)
+        _, diag = engine_with_diag(torch, dev, a, Tw, Nw, Kw, N_EVENTS, wl,
+                                   tn, ln, streams, "kernel")
+        ms = cuda_ms(torch, lambda: run_events(
+            a, Tw, Nw, Kw, N_EVENTS, wl, tn, ln, backend="kernel",
+            device=dev, streams=streams))
+        row = {"shape": dict(alg=a, T=Tw, N=Nw, K=Kw,
+                             B=int(wl.seed.shape[0]),
+                             P=int(wl.edges.shape[1])),
+               "k1_ms": ms, "reps": 3,
+               "smem_plan": smem_plan.last_plan().as_dict(),
+               **k1_row(k1_bound(a, wl, streams, Tw, Nw, Kw, N_EVENTS))}
+        d = diag.cpu().long()
+        sums = [d[c * S:(c + 1) * S].sum(0).tolist()
+                for c in range(len(sub_ws))]
+        del streams, wl
+        return row, sums
+
+    two_racks = [w for w, d in zip(ws, ds)
+                 if d["phases"] and max(d["topology"]) == 1]
+    churn_row, _ = timed(two_racks, alg)
+    bucket_row, sums = timed(ws, alg)
+    workloads = [{"locality": d["locality"],
+                  "racks": max(d["topology"]) + 1,
+                  "churn": bool(d["phases"]), "ops": s[2], "loop": s[4],
+                  "loop_over_ops": s[4] / s[2]}
+                 for d, s in zip(ds, sums)]
+    fig5_row, _ = timed([Workload("alock", 20, TPN, 1000, locality=l)
+                         for l in LOCALITY], "alock")
+    ok = (cut["draws_equal"] and cut["outputs_equal"] and cut["diag_equal"]
+          and sane and all(w["loop"] > 0 for w in workloads))
+    emit({"phase": "rack_churn", "tolerance": 0, "equal": ok,
+          "shape": dict(alg=alg, T=T, N=N, K=K, B=B, P=P),
+          "cut": dict(cut, ops=ops_cut, loop=loop_cut),
+          "n_events": N_EVENTS, "churn_two_racks": churn_row,
+          "bucket": bucket_row, "workloads": workloads,
+          "fig5_widest_alock": fig5_row})
+    if not ok:
+        raise SystemExit("rack_churn: the kernels and the plain route "
+                         "disagree on the rack lock under node churn")
 
 
 def analysis_phase(torch, dev):
@@ -1871,6 +2011,7 @@ def main():
     from repro_torch.kernels.event_loop.ops import (precompute_draws,
                                                     precompute_plan,
                                                     run_events)
+    from repro_torch.kernels.event_loop.ref import DIAG_COLS
     from repro_torch.traffic.stream import arrival_times_i64
     from repro_torch.workloads import (Arrivals, Phase, Workload,
                                        WorkloadOperands, lower, pad_phases,
@@ -1988,7 +2129,7 @@ def main():
         request; returns its outputs and its ``diag``."""
         tn, ln, _ = topology(alg, N, T // N, K)
         B = int(wl.seed.shape[0])
-        diag = torch.zeros((B, 4), dtype=torch.int32, device=dev)
+        diag = torch.zeros((B, DIAG_COLS), dtype=torch.int32, device=dev)
         out = el_kernel.run_events_kernel(
             alg, T, N, K, n_events, wl, torch.from_numpy(tn).to(dev),
             torch.from_numpy(ln).to(dev), streams, lat_samples=1 << 15,
@@ -2015,8 +2156,8 @@ def main():
                            backend="kernel", **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        diag_p = torch.zeros((int(wl.seed.shape[0]), 4), dtype=torch.int32,
-                             device=dev)
+        diag_p = torch.zeros((int(wl.seed.shape[0]), DIAG_COLS),
+                             dtype=torch.int32, device=dev)
         out_p = run_events(alg, T, N, K, n_events, wl, tn, ln,
                            backend="plain", diag=diag_p, **kw)
         torch.cuda.synchronize()
@@ -2270,6 +2411,9 @@ def main():
 
     # -- rw_ycsb: the benchmark's reader-writer lock table at full width ---
     rw_ycsb_phase(torch, dev)
+
+    # -- rack_churn: the benchmark's rack lock under node churn ------------
+    rack_churn_phase(torch, dev)
 
     # -- golden: full-width replicas against the JAX reference's digests ----
     with open(os.path.join(HERE, "tests", "golden",

@@ -79,6 +79,7 @@ from repro_torch.kernels.event_loop import kernel as _kernel
 from repro_torch.kernels.event_loop import smem_plan as _smem_plan
 from repro_torch.kernels.event_loop.ops import (precompute_draws,
                                                 precompute_plan, run_events)
+from repro_torch.kernels.event_loop.ref import DIAG_COLS
 from repro_torch.parallel import sharding as _sharding
 from repro_torch.traffic.metrics import serving_summary, serving_table
 from repro_torch.workloads import (OPERAND_DTYPES, Workload,
@@ -126,19 +127,25 @@ IN_FLIGHT_SHARE = 0.5
 # event), "run" the events the loop ran (an open-loop replica stops at the
 # first event at which it is idle for good: K1's ``diag``; a closed one
 # runs every event), "ops" the lock operations the loop began (its NCS
-# steps, the only events at which it reads the draws) and "reads" those
-# begun shared (alock-rw's readers; 0 for every other algorithm), both
-# counted by the engine into its ``diag``. "serving": "passes" counts the
-# ``serving_mean`` calls (one ``serving_table`` pass over a result's
-# seeds each), "seeds" the seeds those passes summarised and "fallback"
-# the seeds the pass's 2**53 guard sent to ``serving_summary`` one by one.
+# steps, the only events at which it reads the draws), "reads" those
+# begun shared (alock-rw's readers; 0 for every other algorithm) and
+# "loop" those begun on the loopback tier (hlock's locks in another node
+# of the taker's rack; 0 for every other algorithm), all counted by the
+# engine into its ``diag``; "down" the events run in a phase in which at
+# least one thread is parked (its node down), counted on the host from
+# the lowered phase edges and active rows and each replica's events run.
+# "serving": "passes" counts the ``serving_mean`` calls (one
+# ``serving_table`` pass over a result's seeds each), "seeds" the seeds
+# those passes summarised and "fallback" the seeds the pass's 2**53 guard
+# sent to ``serving_summary`` one by one.
 # "smem_plan" is the event-loop kernel's last shared-memory plan (None
 # before any launch).
 _STATS = {"dispatches": 0}
 _SECONDS = {"lower": 0.0, "issue": 0.0, "plan": 0.0, "wait": 0.0,
             "draws": 0.0, "engine": 0.0, "engine_only": 0.0,
             "aggregate": 0.0, "results": 0.0, "wall": 0.0}
-_EVENTS = {"drawn": 0, "run": 0, "ops": 0, "reads": 0}
+_EVENTS = {"drawn": 0, "run": 0, "ops": 0, "reads": 0, "loop": 0,
+           "down": 0}
 _SERVING = {"passes": 0, "seeds": 0, "fallback": 0}
 _STREAMS: dict = {}
 
@@ -166,8 +173,8 @@ def exec_stats() -> dict:
     seconds, events, serving, smem_plan} since the last reset.
     ``seconds``: lower, issue, plan, wait, draws, engine, engine_only,
     aggregate, results, wall (see the comment above ``_SECONDS``);
-    ``events``: {drawn, run, ops, reads}; ``serving``: {passes, seeds,
-    fallback}."""
+    ``events``: {drawn, run, ops, reads, loop, down}; ``serving``:
+    {passes, seeds, fallback}."""
     plan = _smem_plan.last_plan()
     return {"dispatches": _STATS["dispatches"],
             "launches": _kernel.LIB.launches(),
@@ -437,8 +444,9 @@ class _Shard(NamedTuple):
     stream: object           # torch.cuda.Stream, or None on the CPU
     out: tuple               # the engine's device outputs
     marks: tuple             # (draws start, engine start, engine end)
-    diag: object             # (B, 4) i32: events run, path, ops, reads
+    diag: object             # (B, 5) i32: events run, path, ops, reads, loop
     lat_stats: object        # (B, 3) i64: ``_lat_stats`` of the ring
+    parked: object           # host (edges, parked) of ``_parked_phases``
 
 
 def _lat_stats(lat: torch.Tensor) -> torch.Tensor:
@@ -476,9 +484,9 @@ def _issue_shard(key, thread_node, lock_node, wl: WorkloadOperands,
                  backend: str, dev, stream) -> _Shard:
     """Enqueue one shard (its rows of a bucket) on ``dev``: upload its
     operands, draw its stream (and plan), launch its engine call with a
-    ``(B, 4)`` ``diag`` (events run, the open loop's path, lock operations
-    begun and begun shared). ``wl`` leaves (numpy) carry the shard's
-    rows."""
+    ``(B, 5)`` ``diag`` (events run, the open loop's path, lock operations
+    begun, begun shared and begun on the loopback tier). ``wl`` leaves
+    (numpy) carry the shard's rows."""
     alg, T, N, K, n_events, R = key
     ctx = (contextlib.nullcontext() if stream is None
            else torch.cuda.stream(stream))
@@ -502,14 +510,40 @@ def _issue_shard(key, thread_node, lock_node, wl: WorkloadOperands,
                                        backend=backend)
         d1 = _mark(dev)
         with stage("sweep.launch"):
-            diag = torch.zeros((wd.seed.shape[0], 4), dtype=torch.int32,
-                               device=dev)
+            diag = torch.zeros((wd.seed.shape[0], DIAG_COLS),
+                               dtype=torch.int32, device=dev)
             out = run_events(alg, T, N, K, n_events, wd, tn, ln,
                              backend=backend, device=dev, streams=streams,
                              plan=plan, diag=diag)
         e1 = _mark(dev)
         lat_stats = _lat_stats(out[1])
-    return _Shard(dev, stream, out, (d0, d1, e1), diag, lat_stats)
+    return _Shard(dev, stream, out, (d0, d1, e1), diag, lat_stats,
+                  _parked_phases(wl))
+
+
+def _parked_phases(wl: WorkloadOperands):
+    """Per row of a shard's operands (numpy), its phases' first events
+    ``(B, P)`` int64 and whether each phase parks a thread ``(B, P)``
+    bool; None for one phase, which parks nobody (the engine then
+    schedules every thread)."""
+    edges = np.asarray(wl.edges, np.int64)
+    if edges.shape[1] == 1:
+        return None
+    return edges, (np.asarray(wl.active) == 0).any(axis=-1)
+
+
+def _down_events(parked, ev_run: np.ndarray, n_events: int) -> int:
+    """Events run in a phase that parks a thread, summed over the rows:
+    each phase's events ``[edges[p], edges[p + 1])``, cut at the row's
+    events run ``ev_run``."""
+    if parked is None:
+        return 0
+    edges, down = parked
+    ends = np.concatenate(
+        [edges[:, 1:], np.full((len(edges), 1), n_events, np.int64)], 1)
+    ev = ev_run.astype(np.int64)[:, None]
+    span = np.minimum(ends, ev) - np.minimum(edges, ev)
+    return int((span * down).sum())
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -553,11 +587,15 @@ def _force_bucket(issued: _Issued, configs, n_events: int, out: list):
             with ctx:
                 bucket.parts.append(tuple(_to_host(o) for o in sh.out)
                                     + (_to_host(sh.lat_stats),))
-                counts = _to_host(sh.diag).sum(axis=0, dtype=np.int64)
+                diag = _to_host(sh.diag)
+                counts = diag.sum(axis=0, dtype=np.int64)
                 _EVENTS["drawn"] += sh.out[0].shape[0] * n_events
                 _EVENTS["run"] += int(counts[0])
                 _EVENTS["ops"] += int(counts[2])
                 _EVENTS["reads"] += int(counts[3])
+                _EVENTS["loop"] += int(counts[4])
+                _EVENTS["down"] += _down_events(sh.parked, diag[:, 0],
+                                                n_events)
         bucket.pending -= 1
     if bucket.pending == 0:
         with stage("sweep.aggregate", "aggregate"):

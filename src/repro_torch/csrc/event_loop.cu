@@ -145,9 +145,10 @@ struct Args {
     int* rstat;              // (B, R) final request status
     // optional (may be null): per replica the events the loop ran before
     // it stopped, 1 where the open-loop pointer path ran, the lock
-    // operations begun (NCS steps) and how many of them began shared
-    // (alock-rw's RD_TRY; 0 for every other algorithm)
-    int* diag;               // (B, 4)
+    // operations begun (NCS steps), how many of them began shared
+    // (alock-rw's RD_TRY; 0 for every other algorithm) and how many on
+    // the loopback tier (hlock's same-rack locks; 0 for the others)
+    int* diag;               // (B, 5)
     int B, W, T, N, K, P, R, n_events, lat_samples;
     size_t stride;           // bytes of one replica's region
 };
@@ -438,7 +439,8 @@ event_loop_kernel(const Args a) {
     long long* lat = a.lat + (size_t)b * a.lat_samples;
 
     int lat_n = 0, lat_pos = 0, nreacq = 0, npass = 0;   // live in lane 0
-    int nops = 0, nreads = 0;            // lock operations begun, shared
+    // lock operations begun, begun shared, begun on the loopback tier
+    int nops = 0, nreads = 0, nloop = 0;
     // this lane's slice of the next 32-event draw window, loaded a window
     // ahead and stored to the region's window when it becomes current
     float u1n = 0.f, u4n = 0.f;
@@ -705,6 +707,7 @@ event_loop_kernel(const Args a) {
                 else if (FAM) lcode = nc == 0 ? OP_LOCAL : OP_RDMA;
                 else lcode = nnode == mynode ? OP_LOOP : OP_RDMA;
                 lkop[tid] = lcode | (nnode << 3);
+                if (HL) nloop += lcode == OP_LOOP;
                 newpc = first;
                 code = OP_THINK;
                 break;
@@ -892,11 +895,12 @@ event_loop_kernel(const Args a) {
         a.nreacq[b] = nreacq;
         a.npass[b] = npass;
         if (a.diag) {
-            int* d = a.diag + 4 * (size_t)b;
+            int* d = a.diag + 5 * (size_t)b;
             d[0] = ev_run;
             d[1] = OPEN && mono;
             d[2] = nops;
             d[3] = nreads;
+            d[4] = nloop;
         }
     }
     if constexpr (OPEN) {

@@ -29,6 +29,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.event_loop.ref import DIAG_COLS
 from repro_torch.kernels.event_loop.smem_plan import (  # noqa: F401
     ALGS, plan_for_run, smem_bytes, smem_table)
 
@@ -50,13 +51,15 @@ def run_events_kernel(alg, T, N, K, n_events, wl, thread_node, lock_node,
     (``smem_plan.plan_for_run``; ``warps`` overrides the request),
     allocates and pre-fills every output (``lat``, ``wq``, ``soj`` = -1),
     launches without synchronising, checks the launch error and raises on
-    anything the kernel does not take. ``diag``, an optional ``(B, 4)``
+    anything the kernel does not take. ``diag``, an optional ``(B, 5)``
     int32 CUDA tensor, receives per replica the events the loop ran before
     it stopped (``n_events`` unless an open-loop replica fell idle for
     good), 1 where the open loop took its pointer path (0: the exact
     R-wide scans, or a closed loop), the lock operations the loop began
-    (its NCS steps) and how many of them began shared (alock-rw's
-    readers; 0 for every other algorithm).
+    (its NCS steps), how many of them began shared (alock-rw's readers; 0
+    for every other algorithm) and how many on the loopback tier (hlock's
+    locks in another node of the same rack; 0 for every other
+    algorithm).
     """
     R = wl.arr_fix.shape[-1]
     if R > 0 and (plan is None or arr is None):
@@ -98,7 +101,7 @@ def run_events_kernel(alg, T, N, K, n_events, wl, thread_node, lock_node,
         ops.update(arr=(arr, i64, (B, R)), tok=(tok, i32, (B, R)),
                    tokcum=(tokcum, i32, (B, R)), qcap=(qcap, i32, (B, R)))
     if diag is not None:
-        ops.update(diag=(diag, i32, (B, 4)))
+        ops.update(diag=(diag, i32, (B, DIAG_COLS)))
     _build.check_operands("event-loop kernel", **ops)
     dev = u1.device
     splan = plan_for_run(

@@ -139,12 +139,13 @@ def run_events(alg, T, N, K, n_events, wl, thread_node, lock_node, *,
     ``ArrivalPlan`` — the tests use them to tell a fault in the engine
     from a fault in a generator.
 
-    ``diag``, an optional ``(B, 4)`` int32 tensor on ``device``, receives
+    ``diag``, an optional ``(B, 5)`` int32 tensor on ``device``, receives
     per replica the events the loop ran, 1 where an open-loop replica's
     arrival times are non-decreasing (the kernel's pointer path), the lock
     operations the loop began (its NCS steps, where it reads an event's
-    draws) and how many of them began shared (alock-rw's readers; 0 for
-    the others). A
+    draws), how many of them began shared (alock-rw's readers; 0 for
+    the others) and how many on the loopback tier (hlock's locks in
+    another node of the lock taker's rack; 0 for the others). A
     replica runs every event unless it is open loop and falls idle for
     good: at the first event ``i`` at which every thread is idle, no
     admitted request is pending and the arrival stream is drained, it

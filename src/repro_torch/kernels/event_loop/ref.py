@@ -51,6 +51,9 @@ from repro_torch.device import resolve_device
 from repro_torch.traffic.metrics import COMPLETED, DROPPED, IN_SERVICE
 
 LAT_SAMPLES = 1 << 15
+#: columns of an engine's ``diag``: events run, the open loop's pointer
+#: path, lock operations begun, begun shared, begun on the loopback tier
+DIAG_COLS = 5
 
 # cost opcodes emitted by the machine transitions
 OP_LOCAL, OP_POLL, OP_CS, OP_THINK, OP_RDMA, OP_LOOP = range(6)
@@ -436,17 +439,19 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
     their arrival times (``arrival_times_i64(plan.gaps)``), and appends
     ``(arr, wq, soj) (B,R) i64, rstat (B,R) i32``.
 
-    ``diag``, an optional ``(B, 4)`` int32 tensor, is filled by the
+    ``diag``, an optional ``(B, 5)`` int32 tensor, is filled by the
     kernel's rule: column 0 the events the loop ran — ``i + 1`` for the
     first event ``i`` at which an open-loop replica is idle for good
     (every thread idle, nothing admitted pending, the arrival stream
     drained; every later event is a no-op), else ``n_events`` — column 1
     1 where an open-loop replica's arrival times are non-decreasing,
-    column 2 the lock operations begun (the NCS steps taken) and column 3
+    column 2 the lock operations begun (the NCS steps taken), column 3
     those begun shared (alock-rw's readers, the steps into RD_TRY; 0 for
-    every other algorithm). This engine runs every event either way; the
-    counts cost a few ops an event and are made only when ``diag`` is
-    given.
+    every other algorithm) and column 4 those begun on the loopback tier
+    (hlock's locks in another node of the taker's rack, whose lock steps
+    cost OP_LOOP; 0 for every other algorithm). This engine runs every
+    event either way; the counts cost a few ops an event and are made
+    only when ``diag`` is given.
     """
     R = wl.arr_fix.shape[-1]
     if R > 0 and (plan is None or arr is None):
@@ -497,7 +502,7 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
         return a[:, 0] if ph is None else a[rows, ph]
 
     ev_run = torch.full((B,), n_events, dtype=i32, device=dev)
-    n_ops, n_reads = zeros(B), zeros(B)
+    n_ops, n_reads, n_loop = zeros(B), zeros(B), zeros(B)
     for i in range(n_events):
         # -- phase resolve + the boundary rejoin bump -----------------------
         if P > 1:
@@ -553,6 +558,8 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
         if is_hl:
             rk_me = _gat(rk, mynode)
             new_c = (_gat(rk, node_w) != rk_me).to(i32)
+            # the loopback tier: another node of the taker's rack
+            new_loop = (new_c == 0) & (node_w != mynode)
         else:
             new_c = (node_w != mynode).to(i32)
         new_r = (u4s[:, i] < _gat(at_phase(wl.read_frac, ph), tid)
@@ -637,6 +644,8 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
             n_ops = n_ops + began.to(i32)
             if is_rw:
                 n_reads = n_reads + (began & new_r).to(i32)
+            if is_hl:
+                n_loop = n_loop + (began & new_loop).to(i32)
         if R:
             # -- departure: the finishing release frees the thread and
             # stamps the request's sojourn at the step's completion time
@@ -653,5 +662,6 @@ def run_events_plain(alg, T, N, K, n_events, wl, thread_node, lock_node,
                       else 0)
         diag[:, 2] = n_ops
         diag[:, 3] = n_reads
+        diag[:, 4] = n_loop
     out = (done, lat, latn, ready.max(1).values, reacq, npass)
     return out + (arr, wq, soj, rstat) if R else out

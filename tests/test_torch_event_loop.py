@@ -11,8 +11,11 @@ from a fault in the generator.
 """
 import numpy as np
 import pytest
+import torch
 
 import torch_ref as R
+from repro_torch.core import machine as mc
+from repro_torch.kernels.event_loop import ref as plain
 from repro_torch.kernels.event_loop.ops import run_events
 from repro_torch.workloads import operands_from_numpy
 
@@ -179,3 +182,52 @@ def test_open_loop_bucket_returns_ten_outputs():
     out = _port("alock", wl, 200)
     assert len(out) == 10
     assert [tuple(o.shape) for o in out[6:]] == [(1, 8)] * 4
+
+
+@pytest.mark.parametrize("racks", [(0, 0, 1, 1), (0, 1, 1, 1)])
+def test_hlock_churn_shares_a_bucket_with_steady(racks, monkeypatch):
+    """The benchmark's ``rack-churn-20n`` in small: hlock, steady and with
+    node 3 parked for the middle 40 % of the events, padded into one
+    bucket (three phases), against the reference; the ``diag``'s lock
+    operations begun and begun on the loopback tier against a recount of
+    the plain route's trajectory (a lock step of another node of the
+    taker's rack)."""
+    ws = [_base("hlock", topology=racks, locality=0.6),
+          _base("hlock", topology=racks, locality=0.6, phases=(
+              Phase(frac=0.3), Phase(frac=0.4, down_nodes=(3,)),
+              Phase(frac=0.3)))]
+    wl = R.ref_lowered_batched(ws, EV, seeds=[21, 22])
+    assert wl.edges.shape == (2, 3)
+    ref, _ = _reference("hlock", wl, EV)
+    seen = {"ops": torch.zeros(2, dtype=torch.int64),
+            "loop": torch.zeros(2, dtype=torch.int64)}
+    step = plain.sem_step
+
+    def recount(alg, sem, tid, binit, tn, ln, new_t, new_c, new_r, rk):
+        out = step(alg, sem, tid, binit, tn, ln, new_t, new_c, new_r, rk)
+        rows = torch.arange(sem.pc.shape[0])
+        began = sem.pc[rows, tid] == mc.NCS
+        mine = tn[rows, tid]
+        lnode = ln[rows, out[0].target[rows, tid]]
+        seen["ops"] += began
+        seen["loop"] += (began & (lnode != mine)
+                         & (rk[rows, lnode] == rk[rows, mine]))
+        return out
+
+    monkeypatch.setattr(plain, "sem_step", recount)
+    tn, ln, _ = R.ref_sim.topology("hlock", N, TPN, K)
+    diag = torch.full((2, plain.DIAG_COLS), -7, dtype=torch.int32)
+    out = run_events("hlock", N * TPN, N, K, EV,
+                     operands_from_numpy(tuple(np.asarray(a) for a in wl),
+                                         "cpu"),
+                     np.asarray(tn), np.asarray(ln), backend="plain",
+                     device="cpu", diag=diag)
+    R.assert_bitwise(ref, out, R.OUT_NAMES)
+    # parked threads made no step: node 3's threads did less than their
+    # steady twins
+    assert (ref[0][1, 6:].sum() < ref[0][0, 6:].sum())
+    assert diag[:, 0].tolist() == [EV, EV] and (diag[:, 1] == 0).all()
+    assert diag[:, 2].tolist() == seen["ops"].tolist()
+    assert diag[:, 3].tolist() == [0, 0]
+    assert diag[:, 4].tolist() == seen["loop"].tolist()
+    assert (0 < diag[:, 4]).all() and (diag[:, 4] < diag[:, 2]).all()

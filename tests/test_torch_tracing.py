@@ -18,6 +18,7 @@ from repro_torch.core import batch
 from repro_torch.core.cost_model import CostModel
 from repro_torch.experiments import ExecOptions, Experiment
 from repro_torch.kernels.event_loop.ops import run_events
+from repro_torch.kernels.event_loop.ref import DIAG_COLS
 from repro_torch.traffic import metrics
 from repro_torch.workloads import Arrivals, Workload, lower
 
@@ -133,12 +134,15 @@ def test_closed_buckets_run_what_they_draw_and_make_no_plan():
     st = batch.exec_stats()
     ev = st["events"]
     assert (ev["drawn"], ev["run"]) == (2 * SEEDS * EV, 2 * SEEDS * EV)
-    # lock operations begun, none of them shared (no alock-rw here)
+    # lock operations begun, none of them shared (no alock-rw here) nor
+    # on the loopback tier (no hlock), and no node down
     assert 0 < ev["ops"] < ev["run"] and ev["reads"] == 0
+    assert ev["loop"] == 0 and ev["down"] == 0
     assert st["seconds"]["plan"] == 0.0 and st["seconds"]["issue"] > 0
     batch.reset_exec_stats()
     assert batch.exec_stats()["events"] == {"drawn": 0, "run": 0, "ops": 0,
-                                            "reads": 0}
+                                            "reads": 0, "loop": 0,
+                                            "down": 0}
 
 
 def test_serving_pass_counts_the_open_loop_seeds(traced):
@@ -194,7 +198,8 @@ def _diag_run(w, n_seeds, device, backend, n_events=EV):
     T = w.n_nodes * w.threads_per_node
     tn, ln, _, wl = batch._pack(low.shape_key, [low.operands], n_seeds, 1,
                                 CostModel())
-    diag = torch.full((n_seeds, 4), -7, dtype=torch.int32, device=device)
+    diag = torch.full((n_seeds, DIAG_COLS), -7, dtype=torch.int32,
+                      device=device)
     out = run_events(w.alg, T, w.n_nodes, w.n_locks, n_events, wl, tn, ln,
                      backend=backend, device=device, diag=diag)
     return [o.cpu() for o in out], diag.cpu()
@@ -214,8 +219,9 @@ def test_plain_diag_counts_by_the_kernel_rule():
     assert (rstat != 0).all()
     _, cdiag = _diag_run(BASE, SEEDS, "cpu", "plain")
     assert cdiag[:, :2].tolist() == [[EV, 0]] * SEEDS
-    # lock operations begun, none of them shared (no alock-rw here)
-    assert (cdiag[:, 2] > 0).all() and (cdiag[:, 3] == 0).all()
+    # lock operations begun, none of them shared (no alock-rw here) nor
+    # on the loopback tier (no hlock)
+    assert (cdiag[:, 2] > 0).all() and (cdiag[:, 3:] == 0).all()
 
 
 @pytest.mark.card
