@@ -38,7 +38,13 @@ started together), then prints one JSON object per phase:
               multipliers), at T = 16, 4 seeds a workload, launched as the
               planner chooses and with 1 and 3 replicas per block (a tail
               block of 1 or 2), the C and Python shared-memory tables
-              compared; then at the main path's widest bucket shape (T =
+              compared; then every algorithm at the closed loop's other
+              shapes (``LANE_CASES``), with the ``diag``, at 1 and 3
+              replicas per block: T = 240 (all eight slots of the
+              owner-lane body), T = 40 (slots partly filled), T = 288 (the
+              lane-0 body past 256 threads) and T = 240 with a think time
+              beyond the packed keys' 24-bit reach (the exact argmin and
+              the rekey); then at the main path's widest bucket shape (T =
               160, N = 20, K = 1000, B = 96) with the event count cut for
               the plain version's sake, where both are timed (and 1 and 5
               replicas per block checked)
@@ -52,10 +58,13 @@ started together), then prints one JSON object per phase:
               good before a node rejoins (the loop stops, the rejoin bump
               still applies); then the alock open-loop-ramp bucket (B =
               192), timed, events cut for the plain version
-  k1_path_shapes  K1 at both path shapes at full depth: time, shared-memory
+  k1_path_shapes  K1 at both path shapes at full depth: time (closed: alock,
+              and mcs and spinlock at the same bucket), shared-memory
               plan, the C and Python tables, the bytes, operations and
               latency bounds and which binds, the events the open loop's
-              data needs (``diag``)
+              data needs (``diag``); and each K1 instantiation's registers
+              and spill bytes (the library's ptxas report; fails on a
+              spill)
   rw_ycsb     the widest bucket of the benchmark's reader-writer lock table
               (``simbench/configs/ycsb-rw-1000.json``: alock-rw, T = 160,
               N = 20, K = 1,000, Zipf 0.99, YCSB A, B and C x 32 seeds, B =
@@ -227,6 +236,15 @@ FIG5_ALGS = ("alock", "spinlock", "mcs")
 SCALING_TPN = (2, 4, 8, 12)
 N_EVENTS = 150_000
 N_SEEDS = 32
+#: the closed loop's shapes besides T = 16 that kernel_check holds every
+#: algorithm to the plain version at: name -> (nodes, threads a node,
+#: locks, think multiplier). T = 240 is the thread-scaling strip's widest
+#: (20 x 12); a think of 100,000 x 300 ns = 30 ms passes the packed keys'
+#: reach at T = 240 (2**24 ns), so the exact argmin and the rekey run
+LANE_CASES = {"T240_all_slots": (20, 12, 20, "default"),
+              "T40_slots_partly_filled": (5, 8, 20, "default"),
+              "T288_lane0_body": (24, 12, 48, "default"),
+              "T240_key_overflow": (20, 12, 20, 100_000.0)}
 # the scenario registry's open-loop cells
 OPEN_SCENARIOS = ("open-loop-ramp", "burst-storm")
 OPEN_EV_CHECK = 1500
@@ -661,6 +679,25 @@ def ptxas_report(log):
             if m:
                 rows[cur]["registers"] = int(m.group(1))
     return rows
+
+
+def k1_ptxas_report(_build, algs):
+    """K1's instantiations (algorithm x closed or open loop) in the
+    event-loop library's ptxas report (its build's ``-Xptxas -v``):
+    registers and spill bytes. ``ok`` when all of them are there and none
+    spills."""
+    rows = []
+    for fn, regs in ptxas_report(_build.BUILD_LOG.get("event_loop",
+                                                      "")).items():
+        m = re.search(r"event_loop_kernelILi(\d+)ELb([01])E", fn)
+        if m:
+            rows.append({"alg": algs[int(m.group(1))],
+                         "open": m.group(2) == "1", **regs})
+    rows.sort(key=lambda r: (r["open"], algs.index(r["alg"])))
+    ok = len(rows) == 2 * len(algs) and all(
+        r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
+        for r in rows)
+    return {"ok": ok, "instances": rows}
 
 
 def sass_counts(library):
@@ -2238,6 +2275,27 @@ def main():
                                "tail_replicas")}
                                for w, v in c["warps"].items()},
                            **tables(alg, N_S * TPN_S, N_S, K_S, P, 0, 3)})
+    # the closed loop's other shapes: both bodies, every slot, the exact
+    # argmin on key overflow
+    for alg in el_kernel.ALGS:
+        for name, (n, tpn, k, think) in LANE_CASES.items():
+            extra = {}
+            if alg == "hlock":
+                extra["topology"] = racks_of(n, 2)
+            if alg == "alock-rw":
+                extra["read_frac"] = 0.6
+            ws = [Workload(alg, n, tpn, k, locality=0.95, think=think,
+                           seed=7, **extra)]
+            wl = batched(ws, EV_S, SEEDS_S)
+            c = compare(alg, n * tpn, n, k, EV_S, wl, warps=W_S)
+            max_err = max(max_err, c["err"])
+            checks.append({"alg": alg, "case": name, "T": n * tpn,
+                           "equal": c["equal"], "B": int(wl.seed.shape[0]),
+                           "ops": c["ops"], "plain_ms": c["plain_ms"],
+                           "warps": {w: {k: v[k] for k in (
+                               "equal", "diag_equal", "warps", "blocks",
+                               "tail_replicas")}
+                               for w, v in c["warps"].items()}})
     # the main path's widest bucket: alock, 20 nodes x 8 threads, 1000
     # locks, 3 localities x 32 seeds; event count cut for the plain version
     WIDE = dict(alg="alock", T=160, N=20, K=1000)
@@ -2275,6 +2333,19 @@ def main():
                backend="kernel", device=dev, streams=streams)   # warm-up
     ms_full = time_kernel("alock", 160, 20, 1000, N_EVENTS, wl_full, tn, ln,
                           streams)
+    # mcs and spinlock at the same bucket (their own lowering and draws)
+    ms_by_alg = {"alock": ms_full}
+    for alg in ("mcs", "spinlock"):
+        wl_a = batched([w.replace(alg=alg) for w in wide_ws], N_EVENTS,
+                       N_SEEDS)
+        tn_a, ln_a, _ = topology(alg, 20, TPN, 1000)
+        st_a = precompute_draws(wl_a.seed, wl_a.edges, wl_a.zcdf, N_EVENTS,
+                                20, 50, device=dev)
+        run_events(alg, 160, 20, 1000, N_EVENTS, wl_a, tn_a, ln_a,
+                   backend="kernel", device=dev, streams=st_a)  # warm-up
+        ms_by_alg[alg] = time_kernel(alg, 160, 20, 1000, N_EVENTS, wl_a,
+                                     tn_a, ln_a, st_a)
+        del wl_a, st_a
     B_full = int(wl_full.seed.shape[0])
     wide_plan = smem_plan.last_plan().as_dict()
     wide_tables = tables("alock", 160, 20, 1000, 1, 0, wide_plan["warps"])
@@ -2396,10 +2467,11 @@ def main():
             and open_tables["smem_table_agrees"]):
         raise SystemExit(f"kernel_check: the C and Python shared-memory "
                          f"tables differ: {wide_tables} {open_tables}")
-    emit({"phase": "k1_path_shapes", "closed": {
+    k1_regs = k1_ptxas_report(_build, list(el_kernel.ALGS))
+    emit({"phase": "k1_path_shapes", "ptxas": k1_regs, "closed": {
               "shape": dict(WIDE, B=B_full, n_events=N_EVENTS),
-              "ms": ms_full, "smem_plan": wide_plan, **wide_tables,
-              **k1_row(bound_full)},
+              "ms": ms_full, "ms_by_alg": ms_by_alg, "smem_plan": wide_plan,
+              **wide_tables, **k1_row(bound_full)},
           "open": {"shape": dict(alg="alock", T=OT, N=ON, K=OK,
                                  R=RAMP8.arrivals.max_requests, B=B_ofull,
                                  n_events=N_EVENTS),
@@ -2408,6 +2480,9 @@ def main():
                    "events_run_mean": float(open_events.mean()),
                    "events_run_max": float(open_events.max()),
                    **k1_row(bound_open)}})
+    if not k1_regs["ok"]:
+        raise SystemExit(f"k1_path_shapes: a K1 instantiation spills or is "
+                         f"missing from the ptxas report: {k1_regs}")
 
     # -- rw_ycsb: the benchmark's reader-writer lock table at full width ---
     rw_ycsb_phase(torch, dev)

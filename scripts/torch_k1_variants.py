@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 """Time K1 (``csrc/event_loop.cu``) against variants of its own design.
 
-``python3 scripts/torch_k1_variants.py`` on a machine with an NVIDIA H100
-and ``nvcc``. At the widest Fig. 5 bucket (alock, 20 nodes x 8 threads,
-1000 locks, 3 localities x 32 seeds = 96 replicas, 150,000 events) it
-times, with CUDA events over 3 launches after a warm-up:
+``python3 scripts/torch_k1_variants.py [--against OTHER.cu]`` on a machine
+with an NVIDIA H100 and ``nvcc``. At the widest Fig. 5 bucket (20 nodes x
+8 threads, 1000 locks, 3 localities x 32 seeds = 96 replicas, 150,000
+events) it times, with CUDA events over 3 launches after a warm-up:
 
 - the kernel as committed, then again at 2, 4 and 8 replicas per block;
 - build-local copies of the source, each with one design choice undone
   (``VARIANTS``): the launch bound without its one-block minimum, the
-  closed loop's argmin keys packed per event instead of kept per thread,
-  the per-thread keys read by a plain loop instead of eight predicated
-  loads;
-- a copy with ``clock64()`` stamps in lane 0 (``PROFILE_STAMPS``): the
-  cycles one event spends in each part of the loop (20,000 events), and
-  by the PC of the step;
+  closed loop's lane-0 body (keys in the region, every step on lane 0) at
+  T <= 256 in place of the owner-lane body;
+- with ``--against``, another version of ``csrc/event_loop.cu`` (say, a
+  parent commit's) built beside it: alock, mcs and spinlock timed on both
+  in one process, other | committed | committed | other, outputs equal;
+- a copy with ``clock64()`` stamps (``PROFILE_STAMPS``): the cycles one
+  event spends in each part of the loop (20,000 events; the stepping
+  lane's parts summed over the warp), and by the PC of the step;
 
 each copy checked equal to the committed kernel's outputs; then the Fig. 5
 grid through ``Experiment.run()`` at 1, 2, 4, 8 and 16 CUDA streams in the
@@ -38,24 +40,22 @@ VARIANTS = {
     "launch_bound_without_min_blocks": [
         ("__launch_bounds__(32 * MAX_WARPS, 1)",
          "__launch_bounds__(32 * MAX_WARPS)")],
-    "keys_packed_per_event": [
-        ("        if constexpr (!OPEN) {\n"
-         "            // the per-thread keys",
-         "        if constexpr (false) {\n"
-         "            // the per-thread keys")],
-    "keys_by_plain_loop": [
-        ("            if (T <= 8 * 32) {\n#pragma unroll\n",
-         "            if (false) {\n#pragma unroll\n")],
+    "lane0_body": [
+        ("        if (a.T <= 32 * LANE_SLOTS) {",
+         "        if (false) {")],
 }
 
-#: clock64() stamps in lane 0: loop head, argmin, tid decode and the open
-#: loop's queue, lane 0's transition (prologue loads, switch and arm, cost
-#: application, the rest), the tail
+#: clock64() stamps: loop head, argmin, tid decode and the open loop's
+#: queue (lane 0's), then the step: the stepping lane's transition
+#: (prologue loads, switch and arm, cost application, the rest) and the
+#: tail to the warp's reconvergence; the stepping lanes' parts are summed
+#: over the warp at the end
 PROFILE_STAMPS = [
     ("    bool idle_for_good = false;\n",
      "    bool idle_for_good = false;\n"
      "    long long prof[6] = {0, 0, 0, 0, 0, 0}, fine[3] = {0, 0, 0};\n"
-     "    long long pcyc[18] = {0}; int pcnt[18] = {0}; int lastp = 0;\n"),
+     "    long long pcyc[18] = {0}; int pcnt[18] = {0}; int lastp = -1;\n"
+     "    long long c3 = 0, c4 = 0;\n"),
     ("      for (; i < seg_end; ++i) {\n",
      "      for (; i < seg_end; ++i) {\n"
      "        const long long c0 = clock64();\n"),
@@ -64,9 +64,9 @@ PROFILE_STAMPS = [
     ("        // the selected thread's clock",
      "        const long long c2 = clock64();\n"
      "        // the selected thread's clock"),
-    ("        if (lane == 0 && step_ok) {",
-     "        const long long c3 = clock64();\n"
-     "        if (lane == 0 && step_ok) {"),
+    ("        if ((LANE ? lane == (tid & 31) : lane == 0) && step_ok) {",
+     "        c3 = clock64();\n"
+     "        if ((LANE ? lane == (tid & 31) : lane == 0) && step_ok) {"),
     ("            switch (p) {\n            case NCS: {",
      "            const long long f0 = clock64();\n"
      "            switch (p) {\n            case NCS: {"),
@@ -80,12 +80,24 @@ PROFILE_STAMPS = [
     ("            npass += (p == PASS);\n        }\n        __syncwarp();\n"
      "      }",
      "            npass += (p == PASS);\n        }\n"
-     "        const long long c4 = clock64();\n        __syncwarp();\n"
+     "        c4 = clock64();\n        __syncwarp();\n"
      "        const long long c5 = clock64();\n"
      "        prof[0] += c1 - c0; prof[1] += c2 - c1; prof[2] += c3 - c2;\n"
      "        prof[3] += c4 - c3; prof[4] += c5 - c4; prof[5] += 1;\n"
-     "        if (lane == 0) { pcyc[lastp] += c4 - c3; pcnt[lastp] += 1; }\n"
+     "        if (lastp >= 0) {\n"
+     "            pcyc[lastp] += c4 - c3; pcnt[lastp] += 1; lastp = -1;\n"
+     "        }\n"
      "      }"),
+    # the stepping lanes' parts summed over the warp
+    ("    if (lane == 0) {\n        a.lat_n[b] = lat_n;",
+     "    for (int q = 0; q < 21; ++q) {\n"
+     "        long long v = q < 3 ? fine[q] : pcyc[q - 3];\n"
+     "        for (int off = 16; off > 0; off >>= 1)\n"
+     "            v += __shfl_xor_sync(FULL, v, off);\n"
+     "        if (q < 3) fine[q] = v; else pcyc[q - 3] = v;\n"
+     "    }\n"
+     "    for (int q = 0; q < 18; ++q) pcnt[q] = warp_sum(pcnt[q]);\n"
+     "    if (lane == 0) {\n        a.lat_n[b] = lat_n;"),
     # the stamps leave through the latency ring's first 45 slots
     ("        a.npass[b] = npass;\n",
      "        a.npass[b] = npass;\n"
@@ -113,9 +125,16 @@ def edited(name, edits):
     return path
 
 
-def main():
+def main(argv=None):
+    import argparse
+
     import numpy as np
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", type=Path, default=None,
+                    help="another event_loop.cu to time beside the "
+                         "committed one")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_k1_variants: needs a CUDA device", file=sys.stderr)
         return 1
@@ -133,6 +152,11 @@ def main():
              for n, e in VARIANTS.items()]
     specs.append((edited("profile", PROFILE_STAMPS), "k1_variant_profile",
                   K.LIB.flags))
+    if args.against is not None:
+        other = ROOT / "build" / "k1_variant_against.cu"
+        other.parent.mkdir(exist_ok=True)
+        other.write_text(args.against.read_text())
+        specs.append((other, "k1_variant_against", K.LIB.flags))
     _build.build_all(specs)
 
     def use(stem):
@@ -141,8 +165,8 @@ def main():
                 ROOT / "build" / f"{stem}.cu", stem,
                 lambda lib: _build.bind(lib, K.LIB.signatures), K.LIB.flags))
 
-    def widest(n_events):
-        lws = [lower(Workload("alock", 20, 8, 1000, locality=l), n_events)
+    def widest(n_events, alg="alock"):
+        lws = [lower(Workload(alg, 20, 8, 1000, locality=l), n_events)
                for l in (0.85, 0.95, 1.0)]
         wl = WorkloadOperands(*(
             np.repeat(np.stack([np.asarray(getattr(lw.operands, f))
@@ -156,21 +180,20 @@ def main():
                                    50, device=dev)
         return wl, streams
 
-    tn, ln, _ = topology("alock", 20, 8, 1000)
-    tn, ln = torch.from_numpy(tn).to(dev), torch.from_numpy(ln).to(dev)
+    def launch(wl, streams, n_events, warps=None, alg="alock"):
+        tn, ln, _ = topology(alg, 20, 8, 1000)
+        return K.run_events_kernel(
+            alg, 160, 20, 1000, n_events, wl, torch.from_numpy(tn).to(dev),
+            torch.from_numpy(ln).to(dev), streams, lat_samples=1 << 15,
+            warps=warps)
 
-    def launch(wl, streams, n_events, warps=None):
-        return K.run_events_kernel("alock", 160, 20, 1000, n_events, wl, tn,
-                                   ln, streams, lat_samples=1 << 15,
-                                   warps=warps)
-
-    def timed(wl, streams, n_events, warps=None):
-        launch(wl, streams, n_events, warps)
+    def timed(wl, streams, n_events, warps=None, alg="alock"):
+        launch(wl, streams, n_events, warps, alg)
         start, stop = (torch.cuda.Event(enable_timing=True)
                        for _ in range(2))
         start.record()
         for _ in range(3):
-            launch(wl, streams, n_events, warps)
+            launch(wl, streams, n_events, warps, alg)
         stop.record()
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / 3
@@ -192,6 +215,27 @@ def main():
     emit({"variant": "committed", "ms": timed(wl, streams, n_events)})
     del wl, streams, ref
 
+    # another version of the source beside the committed one, per
+    # algorithm: other | committed | committed | other
+    if args.against is not None:
+        for alg in ("alock", "mcs", "spinlock"):
+            wl, streams = widest(n_events, alg)
+            use(None)
+            ref = launch(wl, streams, n_events, alg=alg)
+            use("k1_variant_against")
+            out = launch(wl, streams, n_events, alg=alg)
+            ms = {"against": [], "committed": []}
+            for stem in ("k1_variant_against", None, None,
+                         "k1_variant_against"):
+                use(stem)
+                ms["committed" if stem is None else "against"].append(
+                    timed(wl, streams, n_events, alg=alg))
+            use(None)
+            emit({"against": str(args.against), "alg": alg, "ms": ms,
+                  "equal_to_committed": all(torch.equal(x, y)
+                                            for x, y in zip(out, ref))})
+            del wl, streams, ref, out
+
     # where an event's cycles go
     wl, streams = widest(20_000)
     use("k1_variant_profile")
@@ -202,8 +246,10 @@ def main():
     pcyc, pcnt = lat[:, 9:27].sum(0), lat[:, 27:45].sum(0)
     emit({"profile": "cycles per event, widest bucket, 20,000 events",
           "loop_head": per[:, 0].mean(), "argmin": per[:, 1].mean(),
-          "tid_and_queue": per[:, 2].mean(), "transition": per[:, 3].mean(),
-          "tail": per[:, 4].mean(),
+          "tid_and_queue": per[:, 2].mean(),
+          "step_to_reconvergence": (per[:, 3] + per[:, 4]).mean(),
+          "event": per.sum(1).mean(),
+          "transition": (pcyc.sum() / pcnt.sum()),
           "transition_prologue": fine[:, 0].mean(),
           "transition_switch_and_arm": fine[:, 1].mean(),
           "transition_cost": fine[:, 2].mean(),

@@ -133,7 +133,11 @@ IN_FLIGHT_SHARE = 0.5
 # of the taker's rack; 0 for every other algorithm), all counted by the
 # engine into its ``diag``; "down" the events run in a phase in which at
 # least one thread is parked (its node down), counted on the host from
-# the lowered phase edges and active rows and each replica's events run.
+# the lowered phase edges and active rows and each replica's events run;
+# "lane" the events run by the shards of buckets that the kernel runs on
+# its owner-lane body (``kernel.owner_lane``: the closed loop at up to 256
+# threads; the plain engine's buckets count by the same rule), counted on
+# the host from the bucket's shape key and each shard's events run.
 # "serving": "passes" counts the ``serving_mean`` calls (one
 # ``serving_table`` pass over a result's seeds each), "seeds" the seeds
 # those passes summarised and "fallback" the seeds the pass's 2**53 guard
@@ -145,7 +149,7 @@ _SECONDS = {"lower": 0.0, "issue": 0.0, "plan": 0.0, "wait": 0.0,
             "draws": 0.0, "engine": 0.0, "engine_only": 0.0,
             "aggregate": 0.0, "results": 0.0, "wall": 0.0}
 _EVENTS = {"drawn": 0, "run": 0, "ops": 0, "reads": 0, "loop": 0,
-           "down": 0}
+           "down": 0, "lane": 0}
 _SERVING = {"passes": 0, "seeds": 0, "fallback": 0}
 _STREAMS: dict = {}
 
@@ -173,7 +177,7 @@ def exec_stats() -> dict:
     seconds, events, serving, smem_plan} since the last reset.
     ``seconds``: lower, issue, plan, wait, draws, engine, engine_only,
     aggregate, results, wall (see the comment above ``_SECONDS``);
-    ``events``: {drawn, run, ops, reads, loop, down}; ``serving``:
+    ``events``: {drawn, run, ops, reads, loop, down, lane}; ``serving``:
     {passes, seeds, fallback}."""
     plan = _smem_plan.last_plan()
     return {"dispatches": _STATS["dispatches"],
@@ -580,6 +584,7 @@ def _force_bucket(issued: _Issued, configs, n_events: int, out: list):
             if sh.stream is not None:
                 sh.marks[-1].synchronize()
     bucket = issued.bucket
+    lane = _kernel.owner_lane(bucket.key[1], bucket.key[5])
     with stage("sweep.copy_back", "aggregate"):
         for sh in issued.shards:
             ctx = (contextlib.nullcontext() if sh.stream is None
@@ -596,6 +601,8 @@ def _force_bucket(issued: _Issued, configs, n_events: int, out: list):
                 _EVENTS["loop"] += int(counts[4])
                 _EVENTS["down"] += _down_events(sh.parked, diag[:, 0],
                                                 n_events)
+                if lane:
+                    _EVENTS["lane"] += int(counts[0])
         bucket.pending -= 1
     if bucket.pending == 0:
         with stage("sweep.aggregate", "aggregate"):

@@ -48,19 +48,28 @@
 // - The lock op's cost code and node are fixed from the NCS draw to the
 //   release, so the NCS step stores them in a per-thread word (lock_op) and
 //   every lock op reads them beside the pc instead of after the target;
-//   lane 0 loads everything the step may read at once, before the switch.
+//   the stepping lane loads everything the step may read at once, before
+//   the switch.
 // - The argmin is one redux.sync over 32-bit keys that pack (clock, tid),
 //   tid in the low bits so the lowest tid wins ties. Closed loop: each
-//   thread's key ((clock - epoch + 1) << tb | tid) is kept in the region
-//   and rewritten with its clock, so an event reads at most eight keys a
-//   lane (up to 256 threads, predicated loads issued together). Open loop
-//   (idle threads wake with the next arrival): keys relative to the last
-//   event's clock are packed each event. A key that cannot hold its clock
-//   sends the event to the exact 64-bit shuffle butterfly (out of line),
-//   and the closed loop then rekeys from the earliest clock.
+//   thread's key ((clock - epoch + 1) << tb | tid) is kept and rewritten
+//   with its clock. Open loop (idle threads wake with the next arrival):
+//   keys relative to the last event's clock are packed each event. A key
+//   that cannot hold its clock sends the event to the exact 64-bit shuffle
+//   butterfly (out of line), and the closed loop then rekeys from the
+//   earliest clock.
+// - Closed loop, T <= 256 (the owner-lane body): thread t belongs to lane
+//   t & 31, slot t >> 5. Each lane keeps its slots' keys and their least
+//   in registers, so the argmin is that least into the redux.sync, with
+//   no shared-memory round trip; the selected thread's step runs on its
+//   owner lane, which writes the new key into its slot and refreshes its
+//   least. Counts live in the lanes' registers and are summed at the end;
+//   the latency ring's position is one shared word (the key row's first),
+//   so the ring keeps its slot order. Otherwise (the open loop; the closed
+//   loop at T > 256) lane 0 steps every thread and the keys live in the
+//   region.
 // - The events run phase by phase, so a boundary's bump and staging sit
-//   outside the per-event loop; lane 0 runs the transition as a real
-//   switch on the PC.
+//   outside the per-event loop; the transition is a real switch on the PC.
 // - Open loop: arrival times are non-decreasing (a prefix sum of
 //   non-negative gaps), so the arrived count, the FIFO head (lowest
 //   pending slot) and the next admitted arrival (lowest pending admitted
@@ -111,6 +120,9 @@ constexpr unsigned KEY_OVF = 0xfffffffeu;
 constexpr unsigned KEY_BELOW = 0u;
 constexpr size_t SMEM_LIMIT = 227 * 1024;
 constexpr int MAX_WARPS = 8;            // replicas per block, at most
+// threads one lane owns in the closed loop's owner-lane body (t = lane +
+// 32 * slot): that body serves T <= 32 * LANE_SLOTS
+constexpr int LANE_SLOTS = 8;
 constexpr size_t REGION_ALIGN = 16;
 
 struct Args {
@@ -243,21 +255,29 @@ __device__ __noinline__ Pick argmin_exact(
     return {best, tid};
 }
 
-// (at least one block an SM: ptxas may then give a thread more than 64
-// registers, and the per-event loop keeps its pointers and tid in them)
-template <int ALG, bool OPEN>
-__global__ void __launch_bounds__(32 * MAX_WARPS, 1)
-event_loop_kernel(const Args a) {
+__device__ __forceinline__ unsigned lesser(unsigned x, unsigned y) {
+    return x < y ? x : y;
+}
+
+// the least of a lane's slot keys, as a tree (three dependent minima)
+__device__ __forceinline__ unsigned slot_min(const unsigned (&k)[LANE_SLOTS]) {
+    return lesser(lesser(lesser(k[0], k[1]), lesser(k[2], k[3])),
+                  lesser(lesser(k[4], k[5]), lesser(k[6], k[7])));
+}
+
+// One replica, on one warp. LANE: the closed loop's owner-lane body (T <=
+// 32 * LANE_SLOTS), else the lane-0 body (the open loop, and the closed
+// loop at T > 32 * LANE_SLOTS).
+template <int ALG, bool OPEN, bool LANE>
+__device__ __forceinline__ void replica(const Args& a, int warp, int b) {
+    static_assert(!(OPEN && LANE), "the owner-lane body is closed-loop only");
     constexpr bool FAM = alock_family(ALG);
     constexpr bool HL = ALG == ALG_HLOCK;
     constexpr bool RW = ALG == ALG_ALOCK_RW;
     constexpr bool SPIN = ALG == ALG_SPINLOCK;
     constexpr int ENTER_CS = RW ? WR_DRAIN : CS;
 
-    const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
-    const int b = blockIdx.x * a.W + warp;
-    if (b >= a.B) return;                 // the tail block's idle warps
     const int T = a.T, N = a.N, K = a.K, P = a.P;
     const int R = OPEN ? a.R : 0;
     const int kpn = K / N;
@@ -282,7 +302,10 @@ event_loop_kernel(const Args a) {
     int* tn = lkop + T;                   // staged thread_node
     float* loc = reinterpret_cast<float*>(tn + T);   // staged locality row
     int* act = reinterpret_cast<int*>(loc + T);   // staged active row
-    unsigned* akey = reinterpret_cast<unsigned*>(act + T);  // closed loop
+    // closed loop: the lane-0 body's keys; the owner-lane body keeps its
+    // keys in registers and this row's first word holds the ring position
+    unsigned* akey = reinterpret_cast<unsigned*>(act + T);
+    int* ringpos = reinterpret_cast<int*>(akey);
     float* rfr = reinterpret_cast<float*>(akey + T);  // read_frac (alock-rw)
     int* rack = reinterpret_cast<int*>(rfr + (RW ? T : 0));  // hlock
     int* edges = rack + (HL ? N : 0);
@@ -341,6 +364,7 @@ event_loop_kernel(const Args a) {
         mono = __all_sync(FULL, ok);
         for (int t = lane; t < T; t += 32) curreq[t] = -1;
     }
+    if (LANE && lane == 0) *ringpos = 0;
     __syncwarp();
 
     // the packed argmin key: ((clock - base) << tb) | tid (open loop),
@@ -350,6 +374,10 @@ event_loop_kernel(const Args a) {
     const unsigned long long dmax = (1ull << (32 - tb)) - 2ull;
     const unsigned long long kmax = (1ull << (32 - tb)) - 4ull;
     long long epoch = 0;                  // the closed loop's key origin
+    // owner-lane body: the keys of this lane's threads (slot j holds
+    // thread lane + 32 j; KEY_NONE past T) and their least
+    unsigned kr[LANE ? LANE_SLOTS : 1];
+    unsigned lmin = KEY_NONE;
     auto pack = [&](int t, long long r) -> unsigned {
         if (r < epoch) return KEY_BELOW;
         const unsigned long long d = (unsigned long long)(r - epoch);
@@ -362,9 +390,18 @@ event_loop_kernel(const Args a) {
             if (act[t] != 0 && ready[t] < m) m = ready[t];
         m = warp_min(m);
         if (m != NEVER) epoch = m;
-        for (int t = lane; t < T; t += 32)
-            akey[t] = act[t] != 0 ? pack(t, ready[t]) : KEY_NONE;
-        __syncwarp();
+        if constexpr (LANE) {
+#pragma unroll
+            for (int j = 0; j < LANE_SLOTS; ++j) {
+                const int t = lane + 32 * j;
+                kr[j] = t < T && act[t] != 0 ? pack(t, ready[t]) : KEY_NONE;
+            }
+            lmin = slot_min(kr);
+        } else {
+            for (int t = lane; t < T; t += 32)
+                akey[t] = act[t] != 0 ? pack(t, ready[t]) : KEY_NONE;
+            __syncwarp();
+        }
     };
 
     // -- phase boundaries: rejoin bump, then the phase's rows staged -------
@@ -438,7 +475,10 @@ event_loop_kernel(const Args a) {
     const float* u4 = RW ? a.u4 + ev0 : nullptr;
     long long* lat = a.lat + (size_t)b * a.lat_samples;
 
-    int lat_n = 0, lat_pos = 0, nreacq = 0, npass = 0;   // live in lane 0
+    // per-replica counts, kept by the lanes that step (lane 0, or each
+    // owner lane) and summed over the warp at the end; lat_pos is lane 0's
+    // ring position (the owner-lane body keeps it in *ringpos)
+    int lat_n = 0, lat_pos = 0, nreacq = 0, npass = 0;
     // lock operations begun, begun shared, begun on the loopback tier
     int nops = 0, nreads = 0, nloop = 0;
     // this lane's slice of the next 32-event draw window, loaded a window
@@ -468,6 +508,15 @@ event_loop_kernel(const Args a) {
                 if (RW) u4n = u4[j];
             }
             __syncwarp();
+        }
+        // owner-lane body: this event's draws, read before the argmin
+        // resolves (they do not depend on the thread it selects)
+        float wu1 = 0.f, wu4 = 0.f;
+        int wr2 = 0, wr3 = 0;
+        if constexpr (LANE) {
+            const int e = i & 31;
+            wu1 = dw_u1[e]; wr2 = dw_r2[e]; wr3 = dw_r3[e];
+            if (RW) wu4 = dw_u4[e];
         }
 
         // -- open loop: idle threads (NCS, no request bound) wake at the
@@ -500,17 +549,11 @@ event_loop_kernel(const Args a) {
         long long best;
         int tid;
         if constexpr (!OPEN) {
-            // the per-thread keys: a min over this lane's, one redux.sync
-            // (up to 256 threads, eight predicated loads issued together)
-            unsigned key = KEY_NONE;
-            if (T <= 8 * 32) {
-#pragma unroll
-                for (int j = 0; j < 8; ++j) {
-                    const int t = lane + 32 * j;
-                    const unsigned k = t < T ? akey[t] : KEY_NONE;
-                    key = k < key ? k : key;
-                }
-            } else {
+            // the per-thread keys: a min over this lane's, one redux.sync.
+            // The owner-lane body holds that min in a register; the lane-0
+            // body reads its keys from the region
+            unsigned key = lmin;
+            if constexpr (!LANE) {
                 for (int t = lane; t < T; t += 32) {
                     const unsigned k = akey[t];
                     key = k < key ? k : key;
@@ -638,7 +681,9 @@ event_loop_kernel(const Args a) {
             step_ok = !pend_tid || do_disp;
         }
 
-        if (lane == 0 && step_ok) {
+        // the step of thread tid: on its owner lane (owner-lane body), else
+        // on lane 0
+        if ((LANE ? lane == (tid & 31) : lane == 0) && step_ok) {
             // everything the step may read about thread tid, loaded at once
             const int p = pc[tid];
             const int me = tid + 1;
@@ -648,6 +693,17 @@ event_loop_kernel(const Args a) {
             const int lk = lkop[tid];
             const long long ost = opst[tid];
             const bool tid_act = act[tid] != 0;
+            // owner-lane body: what the NCS arm and the completion
+            // accounting read, with the rest (the lane-0 body reads it
+            // where it is used)
+            float loc_t = 0.f, rfr_t = 0.f;
+            int done_t = 0, pos = lat_pos;
+            if constexpr (LANE) {
+                loc_t = loc[tid];
+                if (RW) rfr_t = rfr[tid];
+                done_t = done[tid];
+                pos = *ringpos;
+            }
             // the lock op's cost, fixed at the NCS draw (lock_op): its RNIC
             // pair and busy clock, and this thread's CPU-side costs
             const int2* ct2 = reinterpret_cast<const int2*>(ct);
@@ -682,21 +738,23 @@ event_loop_kernel(const Args a) {
                 // workload draw: own node with probability locality, else
                 // a uniform remote node; a Zipf-ranked lock within it
                 const int e = i & 31;
-                const bool go_local = dw_u1[e] < loc[tid];
+                const bool go_local = (LANE ? wu1 : dw_u1[e])
+                                    < (LANE ? loc_t : loc[tid]);
                 // the remote offset is drawn in [0, N - 1), so one
                 // subtraction is the modulo
-                const int x = mynode + 1 + dw_r2[e];
+                const int x = mynode + 1 + (LANE ? wr2 : dw_r2[e]);
                 const int other = (unsigned)x < 2u * (unsigned)N
                                 ? (x >= N ? x - N : x) : x % N;
                 const int node = go_local ? mynode : other;
                 int first;
-                if (RW) first = dw_u4[e] < rfr[tid] ? RD_TRY : SWAP;
+                if (RW) first = (LANE ? wu4 : dw_u4[e])
+                              < (LANE ? rfr_t : rfr[tid]) ? RD_TRY : SWAP;
                 else first = SPIN ? SL_CAS : SWAP;
                 nops += 1;
                 if (RW) nreads += first == RD_TRY;
                 bud[tid] = -1;
                 nxt[tid] = 0;
-                const int nk = node * kpn + dw_r3[e];
+                const int nk = node * kpn + (LANE ? wr3 : dw_r3[e]);
                 tgt[tid] = nk;
                 const int nc = HL ? (rack[node] != rack[mynode])
                                   : (node != mynode);
@@ -845,18 +903,28 @@ event_loop_kernel(const Args a) {
             }
             // what the next event's argmin reads, first
             ready[tid] = new_ready;
-            if constexpr (!OPEN)
+            if constexpr (LANE) {
+                // the new key into its slot, and this lane's least key
+                const unsigned nk = tid_act ? pack(tid, new_ready) : KEY_NONE;
+                const int s = tid >> 5;
+#pragma unroll
+                for (int j = 0; j < LANE_SLOTS; ++j)
+                    kr[j] = j == s ? nk : kr[j];
+                lmin = slot_min(kr);
+            } else if constexpr (!OPEN) {
                 akey[tid] = tid_act ? pack(tid, new_ready) : KEY_NONE;
+            }
 
             // -- completion accounting: the latency reads op_start before
             // this event re-stamps it -------------------------------------
             const bool rel = p == REL_CAS || p == PASS || p == SL_REL
                           || (RW && p == RD_REL);
             if (rel && newpc == NCS) {
-                lat[lat_pos] = now - ost;
-                lat_pos = lat_pos + 1 == a.lat_samples ? 0 : lat_pos + 1;
+                lat[pos] = now - ost;
+                pos = pos + 1 == a.lat_samples ? 0 : pos + 1;
+                if constexpr (LANE) *ringpos = pos; else lat_pos = pos;
                 lat_n += 1;
-                done[tid] += 1;
+                done[tid] = (LANE ? done_t : done[tid]) + 1;
                 if constexpr (OPEN) {
                     // departure: the finishing release frees the thread
                     // and stamps the request's sojourn at the step's
@@ -889,6 +957,12 @@ event_loop_kernel(const Args a) {
         const long long o = __shfl_xor_sync(FULL, tmax, off);
         tmax = o > tmax ? o : tmax;
     }
+    lat_n = warp_sum(lat_n);
+    nreacq = warp_sum(nreacq);
+    npass = warp_sum(npass);
+    nops = warp_sum(nops);
+    nreads = warp_sum(nreads);
+    nloop = warp_sum(nloop);
     if (lane == 0) {
         a.lat_n[b] = lat_n;
         a.t_end[b] = tmax;
@@ -907,6 +981,24 @@ event_loop_kernel(const Args a) {
         for (int k = lane; k < R; k += 32)
             a.rstat[(size_t)b * R + k] = rstat[k];
     }
+}
+
+// (at least one block an SM: ptxas may then give a thread more than 64
+// registers, and the per-event loop keeps its pointers, tid and, in the
+// owner-lane body, its slot keys in them)
+template <int ALG, bool OPEN>
+__global__ void __launch_bounds__(32 * MAX_WARPS, 1)
+event_loop_kernel(const Args a) {
+    const int warp = threadIdx.x >> 5;
+    const int b = blockIdx.x * a.W + warp;
+    if (b >= a.B) return;                 // the tail block's idle warps
+    if constexpr (!OPEN) {
+        if (a.T <= 32 * LANE_SLOTS) {
+            replica<ALG, false, true>(a, warp, b);
+            return;
+        }
+    }
+    replica<ALG, OPEN, false>(a, warp, b);
 }
 
 template <int ALG, bool OPEN>

@@ -12,12 +12,17 @@ sojourns (see the header of the ``.cu`` file).
 
 Build: at the first launch ``csrc/event_loop.cu`` is compiled by ``nvcc``
 for ``sm_90a`` into ``build/`` at the repository root (``kernels/_build``),
-a shared library with a plain C interface, loaded with ``ctypes``.
+a shared library with a plain C interface, loaded with ``ctypes``; the
+build keeps ptxas's report of registers and spills (``REPORT_FLAGS``).
 Nothing here runs at import time: importing this module needs neither
 ``nvcc`` nor a CUDA device.
 
 ``run_events_kernel`` launches the kernel for CUDA tensors or raises —
-there is no path from here to the plain version. ``LIB`` declares the
+there is no path from here to the plain version. ``owner_lane`` says
+which of its two bodies a launch runs: the closed loop at up to
+``LANE_MAX_T`` threads steps each thread on the lane that owns it, with
+the argmin keys in registers; the open loop, and the closed loop past
+``LANE_MAX_T`` threads, step every thread on lane 0. ``LIB`` declares the
 library; it counts the launches (one per call), and nothing else does.
 ``smem_table`` / ``smem_bytes`` price one replica's region
 (``smem_plan.py``).
@@ -33,12 +38,23 @@ from repro_torch.kernels.event_loop.ref import DIAG_COLS
 from repro_torch.kernels.event_loop.smem_plan import (  # noqa: F401
     ALGS, plan_for_run, smem_bytes, smem_table)
 
+#: threads the closed loop's owner-lane body serves at most: 32 lanes x
+#: ``LANE_SLOTS`` (8) in ``csrc/event_loop.cu``
+LANE_MAX_T = 256
+
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 LIB = _build.Library("event_loop", {
     "event_loop_launch": [_ci] + [_vp] * 29 + [_ci] * 9 + [_vp],
     "event_loop_smem_bytes": [_ci] * 6,
     "event_loop_block_bytes": [_ci] * 7,
-})
+}, _build.REPORT_FLAGS)
+
+
+def owner_lane(T: int, R: int) -> bool:
+    """Whether a launch of ``T`` threads and ``R`` request slots runs the
+    kernel's owner-lane body (the closed loop, ``R == 0``, at ``T <=
+    LANE_MAX_T``); the kernel picks its body by the same rule."""
+    return R == 0 and T <= LANE_MAX_T
 
 
 def run_events_kernel(alg, T, N, K, n_events, wl, thread_node, lock_node,

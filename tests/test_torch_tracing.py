@@ -17,6 +17,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from repro_torch.core import batch
 from repro_torch.core.cost_model import CostModel
 from repro_torch.experiments import ExecOptions, Experiment
+from repro_torch.kernels.event_loop import kernel
 from repro_torch.kernels.event_loop.ops import run_events
 from repro_torch.kernels.event_loop.ref import DIAG_COLS
 from repro_torch.traffic import metrics
@@ -138,11 +139,36 @@ def test_closed_buckets_run_what_they_draw_and_make_no_plan():
     # on the loopback tier (no hlock), and no node down
     assert 0 < ev["ops"] < ev["run"] and ev["reads"] == 0
     assert ev["loop"] == 0 and ev["down"] == 0
+    # 4 threads, closed: every event on the owner-lane body's shape
+    assert ev["lane"] == ev["run"]
     assert st["seconds"]["plan"] == 0.0 and st["seconds"]["issue"] > 0
     batch.reset_exec_stats()
     assert batch.exec_stats()["events"] == {"drawn": 0, "run": 0, "ops": 0,
                                             "reads": 0, "loop": 0,
-                                            "down": 0}
+                                            "down": 0, "lane": 0}
+
+
+@pytest.mark.parametrize("T,R,lane", [
+    (1, 0, True), (240, 0, True), (256, 0, True), (257, 0, False),
+    (288, 0, False), (16, 256, False), (256, 1, False)])
+def test_owner_lane_body_rule(T, R, lane):
+    assert kernel.owner_lane(T, R) is lane
+
+
+def test_lane_events_count_closed_buckets_up_to_256_threads():
+    # a closed bucket at T = 240 (20 x 12), one past 256 (T = 288) and an
+    # open one: only the first bucket's events count
+    wide = BASE.replace(n_nodes=20, threads_per_node=12, n_locks=20)
+    past = BASE.replace(n_nodes=24, threads_per_node=12, n_locks=24)
+    batch.reset_exec_stats()
+    batch.sweep([wide], n_seeds=SEEDS, n_events=EV, device="cpu")
+    ev = batch.exec_stats()["events"]
+    assert ev["lane"] == ev["run"] == SEEDS * EV
+    batch.sweep([past, DRAINS], n_seeds=SEEDS, n_events=EV, device="cpu")
+    ev = batch.exec_stats()["events"]
+    assert ev["lane"] == SEEDS * EV and ev["run"] > 2 * SEEDS * EV
+    batch.reset_exec_stats()
+    assert batch.exec_stats()["events"]["lane"] == 0
 
 
 def test_serving_pass_counts_the_open_loop_seeds(traced):
